@@ -1,0 +1,57 @@
+"""The port stands alone: no module of msckf_stereo_c_torch, and not
+chip_smoke.py, imports JAX or the JAX package."""
+import io
+import os
+import pkgutil
+import subprocess
+import sys
+import tokenize
+
+import pytest
+
+import msckf_stereo_c_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(msckf_stereo_c_torch.__file__)
+
+
+def _port_modules():
+    names = [msckf_stereo_c_torch.__name__]
+    for info in pkgutil.walk_packages([PKG], prefix="msckf_stereo_c_torch."):
+        names.append(info.name)
+    return sorted(names)
+
+
+def test_every_module_imports_without_jax():
+    modules = _port_modules() + ["chip_smoke"]
+    assert len(modules) > 30
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'msckf_stereo_c_tpu'))\n"
+        "print(len(sys.modules))\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"} | {"PYTHONPATH": ROOT},
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_names_the_jax_package_in_code(path):
+    """Comments and docstrings may cite the JAX original; code may not name
+    it or JAX."""
+    with open(path) as f:
+        tokens = tokenize.generate_tokens(io.StringIO(f.read()).readline)
+        names = {t.string for t in tokens if t.type == tokenize.NAME}
+    assert not names & {"msckf_stereo_c_tpu", "jax", "jaxlib"}, path
