@@ -7,20 +7,29 @@ Phases, each of which fails the run (exit code 1) if it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every ``msckf_stereo_c_torch/csrc/*.cu`` compiled by ``nvcc`` for
-   ``sm_90a`` (into ``build/torch_kernels/``);
+   ``sm_90a`` (into ``build/torch_kernels/``), all sources at once;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
-   card, at the shapes the main path gives it, with inputs cut from real
-   frames of the bench scene; kernel, plain and library-call times (CUDA
-   events) beside the least time the card could take;
+   card, at the shapes the main paths give it, with inputs cut from real
+   frames (K1 and K2 from the bench scene; K3 from the stress scene, with
+   'gain' and with 'offset' surfaces); kernel, plain and library-call times
+   (CUDA events) beside the least time the card could take;
 4. main path: ``run_vio_sequence`` over the bench scene (752x480 stereo,
    the configuration ``bench.py`` runs, B=1) with the kernel launch counts
    zeroed just before and read just after; frames/s, ATE, tracks, host syncs;
-5. profile: the last frames again, from the state the frames before them
-   leave, under ``torch.profiler``: device busy share and the kernels that
-   take the device time (``<out>/profile.txt``); then once more with each
-   stage of a frame timed;
-6. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
-   the last line.
+5. mode sweep: each ``klt_norm`` mode over 20 bench frames, with the exact
+   K1 / K3 / K2 launch split per frame it must give;
+6. profile: the last bench frames again, from the state the frames before
+   them leave, under ``torch.profiler``: device busy share and the kernels
+   that take the device time (``<out>/profile.txt``); then once more with
+   each stage of a frame timed;
+7. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
+   (721 stereo frames rendered on the card with every stress channel on,
+   ``klt_norm='gain'``), launch counts zeroed just before and read just
+   after (7 K3, 0 K1, 10 K2 per frame), the gate's ATE and track bars,
+   frames/s and render time; then the same run with each stage timed and
+   its host syncs counted;
+8. the card's name and power limit, the ``{"kernels": [...]}`` line, then
+   ``{"ok": true, "device": ...}`` as the last line.
 
 Details go to ``<out>/chip_smoke.json``.  The script imports nothing of JAX
 or of the JAX package.
@@ -45,10 +54,19 @@ F32_OPS_PER_S = 67e12
 # 4 bilinear weights (8), two 4-tap sums (16), residuals (2), 2x2 solve (6),
 # update and clamps (6), convergence test (4).
 K1_OPS_PER_STEP = 42
+# One K3 step: 4 bilinear weights (8), three 4-tap sums (24), residuals (3),
+# the 2x3 product (10), update and clamps (6), convergence test (4).
+K3_OPS_PER_STEP = 55
 K1_TOL = 0.02  # 2 * eps: a lane may freeze one (sub-eps) step apart
 SECTOR_BYTES = 32  # the least the card reads from memory at once
 FRAMES = 60  # main-path frames, 752x480 stereo (bench.py's scene)
 N_TAIL = 20  # last frames of the scene run again by the profile phase
+SWEEP_FRAMES = 20  # bench frames per photometric mode in the mode sweep
+STRESS_SECONDS = 36.0  # the stress gate's short run (721 stereo frames)
+# K1, K3 and K2 launches per frame for each klt_norm mode.
+MODE_SPLIT = {
+    "zeromean": (7, 0), "offset": (0, 7), "gain": (0, 7), "mixed": (0, 7), "anchor_gain": (6, 1),
+}
 
 KERNEL_SOURCES = {
     "lk_corr_iterate": (
@@ -58,6 +76,10 @@ KERNEL_SOURCES = {
     "extract_windows": (
         "msckf_stereo_c_torch/csrc/extract_windows.cu",
         "msckf_stereo_c_tpu/ops/patch_extract.py:28",
+    ),
+    "lk_corr_iterate_gain": (
+        "msckf_stereo_c_torch/csrc/lk_corr_iterate_gain.cu",
+        "msckf_stereo_c_tpu/ops/klt_corr.py:144",
     ),
 }
 
@@ -89,9 +111,10 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 
 
 def device_ms(fn, kernel: str, reps: int = 50):
-    """Mean device time in ms of the CUDA kernels whose name contains
-    ``kernel``, per call of ``fn``, as torch.profiler (CUPTI) records them;
-    None when the profiler records no device time."""
+    """Mean device time in ms of one launch of the CUDA kernel whose name
+    contains ``kernel``, over the launches of ``reps`` calls of ``fn`` that
+    torch.profiler (CUPTI) records (divided by the launches it recorded, so
+    a dropped record does not lower the mean); None when it records none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -101,8 +124,10 @@ def device_ms(fn, kernel: str, reps: int = 50):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages() if kernel in e.key)
-    return us / reps / 1e3 if us > 0 else None
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    us = sum(e.self_device_time_total for e in events)
+    n = sum(e.count for e in events)
+    return us / n / 1e3 if us > 0 else None
 
 
 def _fmt(ms) -> str:
@@ -131,25 +156,32 @@ def bench_scene(n_frames: int):
     return traj, imu, frame_idx, img0, img1
 
 
-def k1_trace(sc, cx, cy, iters: int, eps: float, hi: float):
-    """K1's algorithm in numpy float64: four bilinear taps per surface and
-    step, each lane stopping on its own.
+def lk_trace(sc, surfaces, iters: int, eps: float, hi: float):
+    """The algorithm of K1 (two surfaces, sc (N, 8)) or K3 (three surfaces,
+    sc (N, 12)) in numpy float64: four bilinear taps per surface and step,
+    each lane stopping on its own.
 
     Returns the final points (N, 2), the Gauss-Newton steps of each lane,
     and the distinct 32-byte sectors of one (N, K, K) float32 surface that
-    those steps read (the same cells of Cx and of Cy).  What K1 must read
-    and compute on given inputs depends on where and how long each lane
-    walks: a lane that starts frozen reads no surface at all."""
+    those steps read (the same cells of every surface).  What the kernel
+    must read and compute on given inputs depends on where and how long
+    each lane walks: a lane that starts frozen reads no surface at all."""
     import numpy as np
 
     sc = sc.astype(np.float64)
-    cx, cy = cx.astype(np.float64), cy.astype(np.float64)
-    n, K, _ = cx.shape
-    gxx, gxy, gyy, tgx, tgy = (sc[:, i] for i in range(5))
-    fx, fy = sc[:, 5].copy(), sc[:, 6].copy()
-    conv = sc[:, 7] > 0.5
-    det = gxx * gyy - gxy * gxy
-    inv_det = 1.0 / np.where(np.abs(det) > 1e-30, det, 1e-30)
+    surf = [c.astype(np.float64) for c in surfaces]
+    n, K, _ = surf[0].shape
+    if len(surf) == 2:
+        gxx, gxy, gyy = sc[:, 0], sc[:, 1], sc[:, 2]
+        det = gxx * gyy - gxy * gxy
+        inv_det = 1.0 / np.where(np.abs(det) > 1e-30, det, 1e-30)
+        B = np.stack([np.stack([gyy, -gxy], -1), np.stack([-gxy, gxx], -1)], -2) * inv_det[:, None, None]
+        t, f0 = sc[:, 3:5], 5
+    else:
+        B = sc[:, 0:6].reshape(n, 2, 3)
+        t, f0 = sc[:, 6:9], 9
+    fx, fy = sc[:, f0].copy(), sc[:, f0 + 1].copy()
+    conv = sc[:, f0 + 2] > 0.5
     steps = np.zeros(n, np.int64)
     lanes = np.arange(n)
     touched = [np.zeros(0, np.int64)]
@@ -168,12 +200,11 @@ def k1_trace(sc, cx, cy, iters: int, eps: float, hi: float):
             return ((1 - ay) * (1 - ax) * c[lanes, y0, x0] + (1 - ay) * ax * c[lanes, y0, x0 + 1]
                     + ay * (1 - ax) * c[lanes, y0 + 1, x0] + ay * ax * c[lanes, y0 + 1, x0 + 1])
 
-        bx, by = tgx - tap(cx), tgy - tap(cy)
-        dx = (gyy * bx - gxy * by) * inv_det
-        dy = (-gxy * bx + gxx * by) * inv_det
-        fx = np.where(act, np.clip(fx + dx, 0, hi), fx)
-        fy = np.where(act, np.clip(fy + dy, 0, hi), fy)
-        conv = conv | (act & (np.hypot(dx, dy) < eps))
+        b = t - np.stack([tap(c) for c in surf], -1)
+        d = np.einsum("nij,nj->ni", B, b)
+        fx = np.where(act, np.clip(fx + d[:, 0], 0, hi), fx)
+        fy = np.where(act, np.clip(fy + d[:, 1], 0, hi), fy)
+        conv = conv | (act & (np.hypot(d[:, 0], d[:, 1]) < eps))
     sectors = np.unique(np.concatenate(touched) * 4 // SECTOR_BYTES).size
     return np.stack([fx, fy], -1), steps, sectors
 
@@ -218,8 +249,6 @@ def phase_kernels(img0, img1, fcfg):
     import torch
 
     from msckf_stereo_c_torch.models.frontend import pyramids_for
-    from msckf_stereo_c_torch.ops import klt_corr as kc
-    from msckf_stereo_c_torch.ops.fast import detect_grid_corners
     from msckf_stereo_c_torch.ops.patch_extract import extract_windows, extract_windows_reference
 
     dev = torch.device("cuda")
@@ -259,56 +288,7 @@ def phase_kernels(img0, img1, fcfg):
 
     # K1 on correlation surfaces of real features: FAST corners of one frame
     # tracked into the next frame at full resolution.
-    P, iters, eps = fcfg.patch_size, fcfg.max_iteration, fcfg.track_precision
-    img_a, img_b = pyr_a[0], pyr_b[0]
-    H, W = img_a.shape
-    S = min(P + 2 * kc._SEARCH_RADIUS + 2, H, W)
-    corners = detect_grid_corners(img_a, float(fcfg.fast_threshold), fcfg.detector_cell)
-    order = torch.argsort(torch.where(corners.valid, corners.score, -1.0), descending=True)
-    for N in (48, 96, 144):
-        pts = corners.xy[order[:N]]
-        sp = kc._interp_template(img_a, pts, P)
-        tq = kc._template_quantities(sp, P)
-        sorg = kc._clip_xy(torch.floor(pts) - S // 2, 0.0, W - S, H - S)
-        spatch = kc._extract_at_origins(img_b, sorg, S)
-        Cx, Cy = kc._corr_surfaces(spatch, tq.gx, tq.gy, P)
-        c_off = (P - 1) / 2.0
-        f0 = pts - c_off - sorg
-        sc = torch.stack([tq.G[:, 0, 0], tq.G[:, 0, 1], tq.G[:, 1, 1], tq.tgx, tq.tgy,
-                          f0[:, 0], f0[:, 1], (~tq.good).to(torch.float32)], dim=-1).contiguous()
-        hi = float(S - P - 1)
-        got = kc.lk_corr_iterate(sc, Cx, Cy, iters, eps, hi)
-        want = kc.lk_corr_iterate_reference(sc, Cx, Cy, iters, eps, hi)
-        torch.cuda.synchronize()
-        r = P // 2 + 1
-
-        def ok_mask(f):
-            p = f + c_off + sorg
-            return tq.good & (p[:, 0] >= r) & (p[:, 0] < W - r) & (p[:, 1] >= r) & (p[:, 1] < H - r)
-
-        m_got, m_want = ok_mask(got), ok_mask(want)
-        check(torch.equal(m_got, m_want), f"lk_corr_iterate valid mask differs at N={N}")
-        check(bool(torch.isfinite(got).all()), f"lk_corr_iterate gave non-finite output at N={N}")
-        err = float((got - want)[m_want].abs().max()) if bool(m_want.any()) else 0.0
-        check(err <= K1_TOL, f"lk_corr_iterate differs by {err} px (> {K1_TOL}) at N={N}")
-        K = Cx.shape[-1]
-        _, steps, sectors = k1_trace(sc.cpu().numpy(), Cx.cpu().numpy(), Cy.cpu().numpy(), iters, eps, hi)
-        # sc read, f written, and the sectors of Cx and Cy the steps visit.
-        n_bytes = N * 8 * 4 + N * 2 * 4 + 2 * sectors * SECTOR_BYTES
-        ms = cuda_ms(lambda: kc.lk_corr_iterate(sc, Cx, Cy, iters, eps, hi), reps=200)
-        plain = cuda_ms(lambda: kc.lk_corr_iterate_reference(sc, Cx, Cy, iters, eps, hi), reps=10)
-        dev_ms = device_ms(lambda: kc.lk_corr_iterate(sc, Cx, Cy, iters, eps, hi), "lk_corr_iterate_kernel")
-        b, by = bound_ms(n_bytes, int(steps.sum()) * K1_OPS_PER_STEP)
-        rows.append(dict(name="lk_corr_iterate", N=N, K=K, valid=int(m_want.sum()),
-                         lane_steps=int(steps.sum()), max_steps=int(steps.max()), bound_bytes=n_bytes,
-                         surface_bytes=N * 2 * K * K * 4, max_abs_err=err,
-                         ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=None, bound_ms=b,
-                         bound_by=by))
-        print(f"[K1] N={N} K={K}: {int(m_want.sum())} valid lanes, masks equal, max |df| {err:.2e} px "
-              f"(tol {K1_TOL}); {int(steps.sum())} lane steps (max {int(steps.max())}) touching {n_bytes} B "
-              f"of {N * 2 * K * K * 4} B of surfaces; per call {ms:.4f} ms (device {_fmt(dev_ms)}), "
-              f"plain {plain:.4f} ms, bound {b:.6f} ms ({by})")
-    return rows
+    return rows + lk_rows("K1", pyr_a[0], pyr_b[0], fcfg, "none")
 
 
 def phase_main_path(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
@@ -339,20 +319,9 @@ def phase_main_path(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
     secs = time.perf_counter() - t0
     counts = dict(_cuda.launch_counts)
 
-    # Every synchronising call of one more run, as torch's sync debug mode
-    # reports it (the run above is timed without the mode's overhead).
-    sites = {}
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            run(T)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    for w in caught:
-        if "synchroniz" in str(w.message):
-            site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
-            sites[site] = sites.get(site, 0) + 1
+    # Every synchronising call of one more run (the run above is timed
+    # without the sync debug mode's overhead).
+    sites = count_syncs(lambda: run(T))
     syncs = sum(sites.values())
 
     pos = res.positions
@@ -376,6 +345,233 @@ def phase_main_path(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
     check(np.min(tracks[1:]) >= 10, "the tracker lost the scene")
     check(counts["lk_corr_iterate"] == 7 * T, f"lk_corr_iterate launched {counts['lk_corr_iterate']} times, expected 7/frame")
     check(counts["extract_windows"] == 10 * T, f"extract_windows launched {counts['extract_windows']} times, expected 10/frame")
+    check(counts["lk_corr_iterate_gain"] == 0, "lk_corr_iterate_gain launched under klt_norm='none'")
+    return out
+
+
+def count_syncs(fn):
+    """{call site: count} of every synchronising call that ``fn`` makes, as
+    torch's sync debug mode reports them."""
+    import torch
+
+    sites = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return sites
+
+
+def phase_k3(fcfg):
+    """K3 within K1_TOL of its plain version on inputs cut from two frames
+    of the stress scene rendered on the card (exposure drift, vignette,
+    blur and noise on): FAST corners of one frame tracked into the next at
+    full resolution, once with 'gain' and once with 'offset' surfaces."""
+    import numpy as np
+    import torch
+
+    from msckf_stereo_c_torch.models.frontend import pyramids_for
+    from msckf_stereo_c_torch.sim.render_torch import TorchRenderer, make_stress_events
+    from msckf_stereo_c_torch.sim.trajectory import make_room_landmarks, make_stress_trajectory
+
+    dev = torch.device("cuda")
+    traj = make_stress_trajectory(duration=STRESS_SECONDS)
+    idx = np.arange(0, traj.t.shape[0], 10)
+    lms = make_room_landmarks(num=900, radius=7.0, z_cap=3.5, seed=1)
+    k = 60  # 3 s in: the drift is on, the texture-poor windows are not
+    img, _ = TorchRenderer(lms, r_wall=7.0, z_cap=3.5, device=dev).render_sequence(
+        traj, idx[k:k + 2], make_stress_events(traj, idx).slice(k, k + 2))
+    img_a, img_b = pyramids_for(img[0], fcfg)[0], pyramids_for(img[1], fcfg)[0]
+    return lk_rows("K3", img_a, img_b, fcfg, "gain") + lk_rows("K3", img_a, img_b, fcfg, "offset")
+
+
+def lk_rows(tag, img_a, img_b, fcfg, norm):
+    """K1 (norm 'none') or K3 ('gain', 'offset') within K1_TOL of its plain
+    version at N = 48 / 96 / 144 FAST corners of ``img_a`` tracked into
+    ``img_b``, the surfaces built as the main path builds them; per-call,
+    device, plain and bound times."""
+    import torch
+
+    from msckf_stereo_c_torch.config import matmul_precision_scope
+    from msckf_stereo_c_torch.ops import klt_corr as kc
+    from msckf_stereo_c_torch.ops.fast import detect_grid_corners
+
+    P, iters, eps = fcfg.patch_size, fcfg.max_iteration, fcfg.track_precision
+    H, W = img_a.shape
+    S = min(P + 2 * kc._SEARCH_RADIUS + 2, H, W)
+    hi = float(S - P - 1)
+    c_off = (P - 1) / 2.0
+    r = P // 2 + 1
+    corners = detect_grid_corners(img_a, float(fcfg.fast_threshold), fcfg.detector_cell)
+    order = torch.argsort(torch.where(corners.valid, corners.score, -1.0), descending=True)
+    rows = []
+    for N in (48, 96, 144):
+        pts = corners.xy[order[:N]]
+        with matmul_precision_scope(fcfg.matmul_precision):
+            tq = kc._template_quantities(kc._interp_template(img_a, pts, P), P, norm)
+            sorg = kc._clip_xy(torch.floor(pts) - S // 2, 0.0, W - S, H - S)
+            Cx, Cy, Ct = kc._surfaces_for_norm(kc._extract_at_origins(img_b, sorg, S), tq, P, norm)
+        f0 = pts - c_off - sorg
+        conv0 = (~tq.good).float()
+        if Ct is None:
+            name, fn, ref, ops_per_step = "lk_corr_iterate", kc.lk_corr_iterate, kc.lk_corr_iterate_reference, K1_OPS_PER_STEP
+            surfaces = (Cx, Cy)
+            sc = torch.stack([tq.G[:, 0, 0], tq.G[:, 0, 1], tq.G[:, 1, 1], tq.tgx, tq.tgy,
+                              f0[:, 0], f0[:, 1], conv0], -1)
+        else:
+            name, fn, ref, ops_per_step = ("lk_corr_iterate_gain", kc.lk_corr_iterate_gain,
+                                           kc.lk_corr_iterate_gain_reference, K3_OPS_PER_STEP)
+            surfaces = (Cx, Cy, Ct)
+            B = tq.Binv
+            sc = torch.stack([B[:, 0, 0], B[:, 0, 1], B[:, 0, 2], B[:, 1, 0], B[:, 1, 1], B[:, 1, 2],
+                              tq.tgx, tq.tgy, tq.st2, f0[:, 0], f0[:, 1], conv0], -1)
+        args = (sc.contiguous(), *surfaces, iters, eps, hi)
+        got = fn(*args)
+        want = ref(*args)
+        torch.cuda.synchronize()
+
+        def ok_mask(f):
+            p = f + c_off + sorg
+            return tq.good & (p[:, 0] >= r) & (p[:, 0] < W - r) & (p[:, 1] >= r) & (p[:, 1] < H - r)
+
+        m_want = ok_mask(want)
+        check(torch.equal(ok_mask(got), m_want), f"{name} valid mask differs at N={N} ({norm})")
+        check(bool(torch.isfinite(got).all()), f"{name} gave non-finite output at N={N} ({norm})")
+        err = float((got - want)[m_want].abs().max()) if bool(m_want.any()) else 0.0
+        check(err <= K1_TOL, f"{name} differs by {err} px (> {K1_TOL}) at N={N} ({norm})")
+        K, ns = Cx.shape[-1], len(surfaces)
+        _, steps, sectors = lk_trace(args[0].cpu().numpy(), tuple(c.cpu().numpy() for c in surfaces),
+                                     iters, eps, hi)
+        # sc read, f written, and the sectors of each surface the steps visit.
+        n_bytes = sc.numel() * 4 + N * 2 * 4 + ns * sectors * SECTOR_BYTES
+        ms = cuda_ms(lambda: fn(*args), reps=200)
+        plain = cuda_ms(lambda: ref(*args), reps=10)
+        dev_ms = device_ms(lambda: fn(*args), f"{name}_kernel")
+        b, by = bound_ms(n_bytes, int(steps.sum()) * ops_per_step)
+        rows.append(dict(name=name, norm=norm, N=N, K=K, valid=int(m_want.sum()),
+                         lane_steps=int(steps.sum()), max_steps=int(steps.max()), bound_bytes=n_bytes,
+                         surface_bytes=N * ns * K * K * 4, max_abs_err=err, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain, library_ms=None, bound_ms=b, bound_by=by))
+        print(f"[{tag}] {norm} N={N} K={K}: {int(m_want.sum())} valid lanes, masks equal, max |df| {err:.2e} px "
+              f"(tol {K1_TOL}); {int(steps.sum())} lane steps (max {int(steps.max())}) touching {n_bytes} B "
+              f"of {N * ns * K * K * 4} B of surfaces; per call {ms:.4f} ms (device {_fmt(dev_ms)}), "
+              f"plain {plain:.4f} ms, bound {b:.7f} ms ({by})")
+    return rows
+
+
+def phase_mode_sweep(traj, imu, frame_idx, img0, img1, mcfg):
+    """Each photometric mode over the first SWEEP_FRAMES bench frames: the
+    exact K1 / K3 / K2 launch split per frame (MODE_SPLIT), and finite
+    poses."""
+    import numpy as np
+    import torch
+
+    from msckf_stereo_c_torch.config import EUROC_CALIB, FrontendConfig
+    from msckf_stereo_c_torch.models.vio import run_vio_sequence
+    from msckf_stereo_c_torch.ops import _cuda
+
+    T = SWEEP_FRAMES
+    frame_t = traj.t[frame_idx[:T]]
+    out = {}
+    for mode, (k1, k3) in MODE_SPLIT.items():
+        fcfg = FrontendConfig(temporal_levels=1, klt_norm=mode)
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_vio_sequence(fcfg, mcfg, EUROC_CALIB, frame_t, img0[:T], img1[:T], imu.t, imu.gyro, imu.acc,
+                               image_dtype=torch.float32, filter_dtype=torch.float32, method="schur",
+                               device="cuda")
+        secs = time.perf_counter() - t0
+        c = dict(_cuda.launch_counts)
+        per = (c["lk_corr_iterate"] / T, c["lk_corr_iterate_gain"] / T, c["extract_windows"] / T)
+        out[mode] = dict(launches=c, seconds=secs, tracks_per_frame_mean=float(np.mean(res.tracking["after_ransac"])))
+        print(f"[modes] {mode:11s}: K1 {per[0]:.0f}, K3 {per[1]:.0f}, K2 {per[2]:.0f} launches/frame over {T} "
+              f"frames ({secs:.2f} s incl. first-call set-up), {out[mode]['tracks_per_frame_mean']:.1f} tracks/frame")
+        check(bool(np.isfinite(res.positions).all()), f"non-finite poses under klt_norm={mode!r}")
+        check(c["lk_corr_iterate"] == k1 * T and c["lk_corr_iterate_gain"] == k3 * T
+              and c["extract_windows"] == 10 * T,
+              f"klt_norm={mode!r}: launches {c}, expected K1 {k1}, K3 {k3}, K2 10 per frame")
+    return out
+
+
+def phase_stress(card):
+    """The stress path: ``run_stress_gate`` over the 36 s stress scene with
+    klt_norm='gain', rendered on the card in chunks (752x480 stereo, 900
+    room landmarks, every stress channel on), with the launch counts zeroed
+    just before and read just after; then the same run once more with each
+    stage timed and its host syncs counted."""
+    import numpy as np
+    import torch
+
+    from msckf_stereo_c_torch.config import FilterConfig, FrontendConfig
+    from msckf_stereo_c_torch.ops import _cuda
+    from msckf_stereo_c_torch.sim import render_torch, stress
+
+    kw = dict(fcfg=FrontendConfig(klt_norm="gain"),
+              mcfg=FilterConfig(ns_iters=10, matmul_precision="tensorfloat32"), method="schur", seed=0)
+    render_s = [0.0]
+    render = render_torch.TorchRenderer.render_sequence
+
+    def timed_render(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        render_s[0] += time.perf_counter() - t0
+        return out
+
+    stress.run_stress_gate(duration=3.0, **kw)  # warm-up: first-call set-up of the stress shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    render_torch.TorchRenderer.render_sequence = timed_render
+    try:
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        gate = stress.run_stress_gate(duration=STRESS_SECONDS, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_cuda.launch_counts)
+    finally:
+        render_torch.TorchRenderer.render_sequence = render
+    T = gate.n_frames
+    tracks = np.asarray(gate.result.tracking["after_ransac"][5:])
+    out = dict(frames=T, seconds=secs, render_seconds=render_s[0], fps=T / secs,
+               fps_without_render=T / (secs - render_s[0]), ate_rmse_m=gate.ate_rmse, ate_max_m=gate.ate_max,
+               min_tracks_after_ransac=gate.min_tracks_after_ransac, tracks_per_frame_mean=float(tracks.mean()),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+    print(f"[stress] {T} stereo frames 752x480 (36 s stress scene, klt_norm='gain') in {secs:.3f} s: "
+          f"{T / secs:.2f} frames/s with rendering, {out['fps_without_render']:.2f} frames/s without "
+          f"(rendering {render_s[0]:.3f} s on the card) on {card}")
+    print(f"[stress] ATE RMSE {gate.ate_rmse:.5f} m (bar 0.13 m), max {gate.ate_max:.5f} m; tracks per frame "
+          f"mean {tracks.mean():.1f} (bar 30), min {gate.min_tracks_after_ransac} (bar > 3)")
+    print(f"[stress] launches: {counts}; peak device memory {out['peak_memory_gb']:.2f} GB")
+    check(bool(np.isfinite(gate.result.positions).all()), "non-finite poses on the stress path")
+    check(counts["lk_corr_iterate_gain"] == 7 * T and counts["lk_corr_iterate"] == 0
+          and counts["extract_windows"] == 10 * T,
+          f"stress path launches {counts}, expected K3 7, K1 0, K2 10 per frame")
+    check(gate.ate_rmse < 0.13, f"stress ATE {gate.ate_rmse} m is above the 0.13 m bar")
+    check(gate.min_tracks_after_ransac > 3, f"stress min tracks {gate.min_tracks_after_ransac} (bar > 3)")
+    check(tracks.mean() > 30, f"stress mean tracks {tracks.mean()} (bar > 30)")
+
+    # One more run, each stage timed and every synchronising call counted;
+    # only the package's call sites count (the stage timer's own
+    # synchronise calls are not the program's).
+    stages = []
+    sites = count_syncs(lambda: stages.append(phase_stages(
+        lambda: stress.run_stress_gate(duration=STRESS_SECONDS, **kw), T, tag="stress stages")))
+    sites = {k: v for k, v in sites.items() if k.startswith("msckf_stereo_c_torch/")}
+    out.update(stages=stages[0], syncs_per_frame=sum(sites.values()) / T,
+               sync_sites={k: v / T for k, v in sorted(sites.items(), key=lambda kv: -kv[1])})
+    print(f"[stress] host syncs per frame: {out['syncs_per_frame']:.2f} over the {T} frames "
+          f"(torch sync debug mode, the stage-timed run), by call site:")
+    for site, per_frame in list(out["sync_sites"].items())[:4]:
+        print(f"[stress]   {per_frame:.2f}/frame at {site}")
     return out
 
 
@@ -460,7 +656,7 @@ STAGES = (
 )
 
 
-def phase_stages(tail, n_tail):
+def phase_stages(tail, n_tail, tag="stages"):
     """Wall time of each stage of a frame over one run of the ``n_tail``
     last frames: each stage function is wrapped for this phase by one that
     synchronises the card before and after it (which adds those syncs to
@@ -495,10 +691,10 @@ def phase_stages(tail, n_tail):
             setattr(mod, attr, fn)
     out = {label: secs * 1e3 / n_tail for label, secs in spent.items()}
     out["frame"] = wall * 1e3 / n_tail
-    print(f"[stages] {n_tail} frames, each stage synchronised: {out['frame']:.2f} ms/frame")
+    print(f"[{tag}] {n_tail} frames, each stage synchronised: {out['frame']:.2f} ms/frame")
     for label, ms in out.items():
         if label != "frame":
-            print(f"[stages]   {ms:8.3f} ms/frame  {label}")
+            print(f"[{tag}]   {ms:8.3f} ms/frame  {label}")
     return out
 
 
@@ -534,31 +730,39 @@ def main(argv=None) -> int:
     traj, imu, frame_idx, img0, img1 = bench_scene(FRAMES)
     print(f"[scene] {FRAMES} stereo frames {img0.shape[2]}x{img0.shape[1]} rendered in {time.time() - t0:.1f} s")
 
-    rows = phase_kernels(img0, img1, fcfg)
+    rows = phase_kernels(img0, img1, fcfg) + phase_k3(fcfg)
     main_out = phase_main_path(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card)
+    sweep_out = phase_mode_sweep(traj, imu, frame_idx, img0, img1, mcfg)
     os.makedirs(args.out, exist_ok=True)
     tail = _resume_split(traj, imu, frame_idx, img0, img1, fcfg, mcfg, N_TAIL)
     prof_out = phase_profile(tail, N_TAIL, args.out)
     stage_out = phase_stages(tail, N_TAIL)
+    stress_out = phase_stress(card)
 
     pick = {
         "lk_corr_iterate": next(r for r in rows if r["name"] == "lk_corr_iterate" and r["N"] == 144),
         "extract_windows": next(r for r in rows if r["name"] == "extract_windows" and r["level"] == 0
                                 and r["S"] == 37),
+        "lk_corr_iterate_gain": next(r for r in rows if r["name"] == "lk_corr_iterate_gain" and r["N"] == 144
+                                     and r["norm"] == "gain"),
     }
+    # K1 and K2 launch counts come from the bench path, K3's from the stress
+    # path (the bench path runs klt_norm='none', which never launches K3).
+    launches = dict(main_out["launches"], lk_corr_iterate_gain=stress_out["launches"]["lk_corr_iterate_gain"])
     kernels = []
     for kname, (source, replaces) in KERNEL_SOURCES.items():
         r = pick[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": main_out["launches"][kname], "max_abs_err": r["max_abs_err"],
+            "launches": launches[kname], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": name, "build_seconds": build["seconds"],
                    "build_logs": build["logs"], "kernel_rows": rows, "main_path": main_out,
-                   "profile": prof_out, "stages": stage_out, "seconds": time.time() - t_start},
+                   "mode_sweep": sweep_out, "profile": prof_out, "stages": stage_out,
+                   "stress_path": stress_out, "seconds": time.time() - t_start},
                   f, indent=1)
     print(f"[done] {time.time() - t_start:.1f} s")
     print(card)

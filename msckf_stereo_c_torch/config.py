@@ -94,7 +94,7 @@ class FrontendConfig:
     translation_seed: bool = True
     anchor_refine: bool = True
     anchor_radius: float = 2.0
-    klt_norm: str = "none"  # the port implements 'none' only
+    klt_norm: str = "none"  # every mode; K3 carries offset/gain/mixed/anchor_gain
     matmul_precision: str = "tensorfloat32"
 
     def __post_init__(self):
@@ -146,7 +146,7 @@ class FilterConfig:
     max_update_tracks: int = 32
     # 0 = exact factorizations (not ported yet); >0 = Newton-Schulz solves.
     ns_iters: int = 0
-    noise_adaptive: bool = False  # not ported yet
+    noise_adaptive: bool = False  # SNR-adaptive observation noise (msckf._snr_weights)
     noise_snr_ref: float = 40.0
     noise_inflation_cap: float = 16.0
     matmul_precision: str = "float32"

@@ -11,9 +11,13 @@
 // with a feature stride `fstride` (they may be views into one (N, 2, K, K)
 // convolution output); out (N, 2).
 //
-// Bound: it reads N*(2*K*K + 8)*4 bytes once (about 0.5 MB at N=144, K=21:
-// 0.15 us at 3.35 TB/s) and does ~40 flops per step, so the floor is launch
-// latency.
+// Bound: the bytes the steps touch.  Each step reads the 2x2 cells around
+// the iterate of Cx and Cy, and a lane that starts frozen reads nothing of
+// them; chip_smoke.py replays the steps and counts the distinct 32-byte
+// sectors.  On bench-scene features at N=144, K=21 that is 67968 B (sc,
+// out and the touched sectors), 0.0000203 ms at 3.35 TB/s, against
+// 508032 B of whole surfaces.  ~40 flops a step are negligible beside it,
+// so the floor is launch latency.
 //
 // Design: one warp per feature, four features per block.  The warp copies
 // its feature's two surfaces (3.5 KB) into shared memory with coalesced

@@ -7,9 +7,9 @@ Per frame: temporal LK on carried templates -> FAST candidates -> candidate
 coarse walk -> fused stereo + anchor + left-right fine level -> gates ->
 allocate, prune, publish.
 
-Only the configuration ``bench.py`` runs is ported (corr KLT, photometric
-norm 'none', template carry, fused stereo, RANSAC off); ``check_supported``
-raises ``NotImplementedError`` naming any other option.
+The configuration ``bench.py`` runs is ported (corr KLT, template carry,
+fused stereo, RANSAC off) with every photometric norm (``klt_norm``);
+``check_supported`` raises ``NotImplementedError`` naming any other option.
 """
 from __future__ import annotations
 
@@ -73,12 +73,24 @@ class FrameOutput(NamedTuple):
     quality: torch.Tensor  # (N,)
 
 
+def _norms(cfg: FrontendConfig) -> Tuple[str, str]:
+    """(frame-to-frame, anchor) photometric norms for cfg.klt_norm: 'mixed'
+    runs the damped offset solve on the frame-to-frame problems and the
+    affine-photometric solve on the anchor, whose birth template spans the
+    whole exposure drift; 'anchor_gain' keeps the raw path everywhere but
+    the anchor (see the JAX original and docs/STRESS_NOTES.md round 5)."""
+    if cfg.klt_norm == "mixed":
+        return "offset", "gain"
+    if cfg.klt_norm == "anchor_gain":
+        return "none", "gain"
+    return cfg.klt_norm, cfg.klt_norm
+
+
 def check_supported(cfg: FrontendConfig, img_shape) -> None:
     """Raise NotImplementedError for a configuration the port does not
     cover yet; nothing is approximated silently."""
     unsupported = [
         ("klt_impl", cfg.klt_impl != "corr"),
-        ("klt_norm", cfg.klt_norm != "none"),
         ("ransac_enabled", cfg.ransac_enabled),
         ("temporal_levels", cfg.temporal_levels != 1),
         ("stereo_levels", cfg.stereo_levels != 1),
@@ -93,8 +105,8 @@ def check_supported(cfg: FrontendConfig, img_shape) -> None:
     for name, bad in unsupported:
         if bad:
             raise NotImplementedError(
-                f"the PyTorch port covers the bench configuration only; "
-                f"{name}={getattr(cfg, name, img_shape)!r} is not ported yet"
+                f"the PyTorch port covers the bench configuration and the klt_norm "
+                f"modes only; {name}={getattr(cfg, name, img_shape)!r} is not ported yet"
             )
 
 
@@ -239,16 +251,19 @@ def _stereo_match_merged(
     left-right gates over the union.  Returns the same tuple as the JAX
     original's fused branch."""
     H, W = img_shape
+    norm, anchor_norm = _norms(cfg)
     kw = dict(win=cfg.patch_size, iters=cfg.max_iteration, eps=cfg.track_precision)
 
     xn = undistort_points(cand_xy, params.K0, params.D0, model=cfg.distortion_model0, R=params.R_c0_c1)
     cguess = distort_points(xn, params.K1, params.D1, model=cfg.distortion_model1)
     s = 4.0  # scale of pyramid level 2
-    res_c = optical_flow_pyr_lk_corr(pyr0[2:], pyr1[2:], cand_xy / s, cguess / s, cand_valid, **kw)
+    res_c = optical_flow_pyr_lk_corr(
+        pyr0[2:], pyr1[2:], cand_xy / s, cguess / s, cand_valid, norm=norm, **kw
+    )
     cguess = res_c.pts * s
     if cfg.cand_level1:
         res_m = optical_flow_pyr_lk_corr(
-            pyr0[1:2], pyr1[1:2], cand_xy / 2.0, cguess / 2.0, cand_valid, **kw
+            pyr0[1:2], pyr1[1:2], cand_xy / 2.0, cguess / 2.0, cand_valid, norm=norm, **kw
         )
         cguess = res_m.pts * 2.0
 
@@ -261,6 +276,8 @@ def _stereo_match_merged(
         anchor_sp=anchor_sp,
         anchor_valid=surv_valid if anchor_sp is not None else None,
         anchor_radius=cfg.anchor_radius,
+        norm=norm,
+        anchor_norm=anchor_norm,
     )
     n_anchor = (
         torch.zeros((), dtype=torch.int32, device=pts0.device)
@@ -414,7 +431,7 @@ def _frontend_step_impl(
     res, _ = optical_flow_lk_corr_l0(
         pyr0_prev[0], pyr0_curr[0], state.pts0, guess, active,
         win=cfg.patch_size, iters=cfg.max_iteration, eps=cfg.track_precision,
-        tmpl_sp=state.tmpl,
+        tmpl_sp=state.tmpl, norm=_norms(cfg)[0],
     )
     tracked_pts0 = res.pts
     tracked = active & res.valid

@@ -75,7 +75,6 @@ def check_supported(cfg: FilterConfig, method: str) -> None:
     unsupported = [
         ("method", method != "schur"),
         ("ns_iters", cfg.ns_iters == 0),
-        ("noise_adaptive", cfg.noise_adaptive),
     ]
     for name, bad in unsupported:
         if bad:
@@ -109,12 +108,34 @@ def make_params(cfg: FilterConfig, calib: StereoCalib, dtype=torch.float64, devi
     )
 
 
+def _snr_weights(quality: torch.Tensor, obs_mask: torch.Tensor, cfg: FilterConfig) -> torch.Tensor:
+    """Per-track EKF weight w = sigma2_base / sigma2_track of the
+    SNR-adaptive observation noise (FilterConfig.noise_adaptive).
+
+    ``quality`` (Kc, Ms) per-observation template min-eig (0 = unknown),
+    ``obs_mask`` the observations that belong to the track.  The track's
+    noise variance inflates by clip(ref / mean quality, 1, cap); a track of
+    unknown quality keeps the base noise.  Returns (Kc,) weights in (0, 1]."""
+    q = torch.where(obs_mask & (quality > 0), quality, torch.zeros_like(quality))
+    cnt = torch.sum(q > 0, dim=1)
+    qmean = torch.sum(q, dim=1) / torch.clamp(cnt, min=1).to(q.dtype)
+    infl = torch.where(
+        qmean > 0,
+        torch.clamp(cfg.noise_snr_ref / torch.clamp(qmean, min=1e-12), 1.0, cfg.noise_inflation_cap),
+        torch.ones_like(qmean),
+    )
+    return 1.0 / infl
+
+
 def _gate_and_update(
     state: FilterState, params: MsckfParams, pos, obs, obs_mask, use, dof,
-    cam_idx=None, ns_iters: int = 10,
+    cam_idx=None, ns_iters: int = 10, w=None,
 ) -> FilterState:
     """Chi-square gate and Schur EKF update over the selected tracks;
-    ``cam_idx`` runs the whole gate and update camera-compacted."""
+    ``cam_idx`` runs the whole gate and update camera-compacted.  ``w``
+    (K,), from ``_snr_weights``, scales each track's Jacobian blocks and
+    residuals by sqrt(w), which makes the base-noise formulas the
+    per-track-noise gate and update exactly."""
     cams = state.cams
     if cam_idx is not None:
         cams = cams._replace(
@@ -122,6 +143,13 @@ def _gate_and_update(
             q_null=cams.q_null[cam_idx], p_null=cams.p_null[cam_idx],
         )
     blocks = track_blocks(pos, obs, obs_mask, cams, state.gravity, params.R_c0_c1, params.t_c0_c1)
+    if w is not None:
+        sw = torch.sqrt(w).to(blocks.H_x.dtype)
+        blocks = blocks._replace(
+            H_x=blocks.H_x * sw[:, None, None, None],
+            H_f=blocks.H_f * sw[:, None, None, None],
+            r=blocks.r * sw[:, None, None],
+        )
     if cam_idx is not None:
         Pc = cam_cov_blocks(state.P, cam_idx)
         gamma = schur_gating_compact(blocks, Pc, params.sigma2, ns_iters)
@@ -183,8 +211,9 @@ def _remove_lost_features(state: FilterState, params: MsckfParams, cfg: FilterCo
     idx, obs_c, obs_valid_c, use, dof, pos, drop_only, candidates = _lost_candidates(
         state, params, cfg.max_update_tracks
     )
+    w = _snr_weights(state.tracks.quality[idx], obs_valid_c, cfg) if cfg.noise_adaptive else None
     state = _gate_and_update(
-        state, params, pos, obs_c, obs_valid_c & use[:, None], use, dof, ns_iters=cfg.ns_iters
+        state, params, pos, obs_c, obs_valid_c & use[:, None], use, dof, ns_iters=cfg.ns_iters, w=w
     )
     gone = drop_only | candidates
     tracks = state.tracks._replace(
@@ -219,9 +248,12 @@ def _prune_cam_states(state: FilterState, params: MsckfParams, cfg: FilterConfig
     use = cand_k & init_ok
     dof = torch.clamp(involved[idx], 1, 99)
     mask_c = (involved_mask[idx] & use[:, None])[:, cam_idx]
+    # The weight comes from the observations this update consumes (the two
+    # pruned slots).
+    w = _snr_weights(tracks.quality[idx], involved_mask[idx], cfg) if cfg.noise_adaptive else None
     state = _gate_and_update(
         state, params, pos, obs_k[:, cam_idx], mask_c, use, dof,
-        cam_idx=cam_idx, ns_iters=cfg.ns_iters,
+        cam_idx=cam_idx, ns_iters=cfg.ns_iters, w=w,
     )
 
     # Persist positions of tracks initialized here; delete the involved

@@ -118,6 +118,12 @@ def vio_step(
     return new_state, (pose, out)
 
 
+def _on_device(x, dtype, device) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
+
+
 @dataclasses.dataclass
 class VioResult:
     times: np.ndarray
@@ -137,8 +143,8 @@ def run_vio_sequence(
     mcfg: FilterConfig,
     calib: StereoCalib,
     frame_t: np.ndarray,
-    images0: np.ndarray,  # (T, H, W)
-    images1: np.ndarray,
+    images0,  # (T, H, W) numpy array or tensor
+    images1,
     imu_t: np.ndarray,
     imu_gyro: np.ndarray,
     imu_acc: np.ndarray,
@@ -151,9 +157,11 @@ def run_vio_sequence(
     device=None,
 ) -> VioResult:
     """Host driver over an image sequence (reference per-image loop).
-    ``chunk`` frames' images are resident on the device at a time.  When
-    resuming with ``state``, pass ``prev_frame_t`` = the last processed
-    frame's time so the IMU samples between the calls are packed."""
+    The images may be host arrays or tensors (a tensor already on the
+    device is used in place); ``chunk`` frames' images are resident on the
+    device at a time.  When resuming with ``state``, pass ``prev_frame_t``
+    = the last processed frame's time so the IMU samples between the calls
+    are packed."""
     device = resolve_device(device)
     fcfg = dataclasses.replace(
         fcfg,
@@ -179,8 +187,8 @@ def run_vio_sequence(
     poses, fronts = [], []
     for s0 in range(0, T, chunk):
         s1 = min(s0 + chunk, T)
-        imgs0 = torch.as_tensor(np.asarray(images0[s0:s1]), dtype=image_dtype).to(device)
-        imgs1 = torch.as_tensor(np.asarray(images1[s0:s1]), dtype=image_dtype).to(device)
+        imgs0 = _on_device(images0[s0:s1], image_dtype, device)
+        imgs1 = _on_device(images1[s0:s1], image_dtype, device)
         times = torch.as_tensor(np.asarray(frame_t[s0:s1], np.float64), dtype=filter_dtype).to(device)
         for k in range(s1 - s0):
             imu = ImuBatch(*(x[s0 + k] for x in batches))

@@ -34,6 +34,9 @@ _SIGNATURES = {
     "lk_corr_iterate": (
         _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P,
     ),
+    "lk_corr_iterate_gain": (
+        _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P,
+    ),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

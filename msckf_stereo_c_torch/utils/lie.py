@@ -35,6 +35,25 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     return _eye(3, phi) + A[..., None, None] * K + B[..., None, None] * (K @ K)
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> axis-angle vector (principal branch, batched):
+    theta = atan2(|w|/2, (tr-1)/2) with w the skew part, a series near the
+    identity; angles near pi are outside its use."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    w = torch.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]],
+        dim=-1,
+    )
+    nsq = torch.sum(w * w, dim=-1)  # = 4 sin^2(theta)
+    small = nsq < 1e-24
+    s = 0.5 * torch.sqrt(torch.where(small, torch.ones_like(nsq), nsq))
+    theta = torch.atan2(s, 0.5 * (tr - 1.0))
+    scale = torch.where(
+        small, 0.5 + nsq / 48.0, theta / torch.where(small, torch.ones_like(s), 2.0 * s)
+    )
+    return w * scale[..., None]
+
+
 def rotation_angle(R: torch.Tensor) -> torch.Tensor:
     """Angle of the rotation (AngleAxis().angle() equivalent), batched."""
     tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]

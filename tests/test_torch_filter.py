@@ -138,7 +138,57 @@ def test_filter_step_sequence(world):
     assert sum(b < a for a, b in zip(tracks, tracks[1:])) >= 3
 
 
+def test_snr_weights():
+    """The per-track SNR weights against the JAX package's, on qualities
+    with unknown (0) entries, masked observations and tracks at both clip
+    limits (float64, equal to 1e-15)."""
+    rng = np.random.default_rng(3)
+    q = rng.uniform(0.0, 60.0, (40, 7)) * (rng.uniform(size=(40, 7)) < 0.8)
+    q[0] = 0.0  # unknown quality: weight 1
+    q[1] = 1e-3  # inflation at the cap
+    mask = rng.uniform(size=(40, 7)) < 0.7
+    mask[:2] = True
+    cfg = TFilterConfig(**KW, noise_adaptive=True)
+    want = np.asarray(jmsckf._snr_weights(jnp.asarray(q), jnp.asarray(mask), JCFG))
+    got = tmsckf._snr_weights(torch.as_tensor(q), torch.as_tensor(mask), cfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-15)
+    assert got[0] == 1.0 and got[1] == 1.0 / cfg.noise_inflation_cap
+    assert (got > 0).all() and (got <= 1).all() and (got < 1).sum() > 10
+
+
+def test_filter_step_noise_adaptive(world):
+    """filter_step with the SNR-adaptive observation noise over the first
+    frames, each observation carrying a tracking-SNR proxy drawn per (frame,
+    feature): the lost-track updates and camera prunes weight each track by
+    sqrt(w).  Same tolerances as test_filter_step_sequence."""
+    w = world
+    kw = dict(KW, noise_adaptive=True)
+    jcfg, tcfg = FilterConfig(**kw), TFilterConfig(**kw)
+    jparams = jmsckf.make_params(jcfg, EUROC_CALIB, jnp.float64)
+    tparams = tmsckf.make_params(tcfg, T_CALIB, torch.float64, "cpu")
+    step = jax.jit(functools.partial(jmsckf.filter_step, params=jparams, cfg=jcfg, method="schur"))
+    rng = np.random.default_rng(5)
+    qual = rng.uniform(2.0, 60.0, w["uv"].shape[:2])
+    jstate, tstate = w["state0"], convert.from_numpy(w["state0"])
+    weighted = 0  # track-frames whose updates would carry a weight below 1
+    for k in range(14):
+        jimu = jax.tree.map(lambda x: jnp.asarray(x[k]), w["batches"])
+        timu = convert.from_numpy(jax.tree.map(lambda x: np.asarray(x[k]), w["batches"]))
+        jstate, jpose = step(jstate, _frame(w, k, "jax")._replace(quality=jnp.asarray(qual[k])), jimu)
+        tstate, tpose = tmsckf.filter_step(
+            tstate, _frame(w, k, "torch")._replace(quality=torch.as_tensor(qual[k])), timu, tparams, tcfg
+        )
+        np.testing.assert_allclose(tpose.p.numpy(), np.asarray(jpose.p), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(tpose.q_xyzw.numpy(), np.asarray(jpose.q_xyzw), rtol=0, atol=1e-8)
+        P = np.asarray(jstate.P)
+        np.testing.assert_allclose(tstate.P.numpy(), P, rtol=0, atol=1e-6 * np.abs(P).max())
+        np.testing.assert_array_equal(tstate.tracks.fid.numpy(), np.asarray(jstate.tracks.fid))
+        t = tstate.tracks
+        weighted += int((tmsckf._snr_weights(t.quality, t.obs_valid, tcfg) < 1).sum())
+    assert weighted > 50
+
+
 def test_unsupported_filter_options_raise():
-    for kw, method in [({}, "qr"), ({"ns_iters": 0}, "schur"), ({"noise_adaptive": True}, "schur")]:
+    for kw, method in [({}, "qr"), ({"ns_iters": 0}, "schur")]:
         with pytest.raises(NotImplementedError):
             tmsckf.check_supported(TFilterConfig(**{**KW, **kw}), method)

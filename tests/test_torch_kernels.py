@@ -1,5 +1,5 @@
-"""The port's two hand-written CUDA kernels, their wrappers and their plain
-versions.
+"""The port's three hand-written CUDA kernels, their wrappers and their
+plain versions.
 
 The tests marked ``cuda`` hold each kernel against its plain version on the
 card and skip without one; the rest run anywhere.  This file imports neither
@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import k1_trace
+from chip_smoke import lk_trace
 from msckf_stereo_c_torch.ops import _cuda
 from msckf_stereo_c_torch.ops import klt_corr as kc
 from msckf_stereo_c_torch.ops.patch_extract import extract_windows, extract_windows_reference
@@ -62,6 +62,28 @@ def _lk_problem(seed, N, H=240, W=320, shift=(2.6, -1.9), device="cpu"):
     return sc, Cx, Cy, ~frozen
 
 
+def _gain_problem(seed, N, norm, H=240, W=320, device="cpu"):
+    """(sc, Cx, Cy, Ct, live) of K3 for N features tracked into a shifted,
+    gain- and offset-changed copy of a texture, under ``norm`` ('gain' or
+    'offset'), built with the port's own template and surface code."""
+    img0 = _texture(seed, H, W)
+    img1 = 1.2 * np.roll(img0, (-2, 3), (0, 1)) - 10.0
+    rng = np.random.default_rng(seed + 1)
+    pts = np.stack([rng.uniform(20, W - 20, N), rng.uniform(20, H - 20, N)], 1).astype(np.float32)
+    a, b = (torch.as_tensor(x.astype(np.float32), device=device) for x in (img0, img1))
+    pts = torch.as_tensor(pts, device=device)
+    tq = kc._template_quantities(kc._interp_template(a, pts, P), P, norm)
+    sorg = kc._clip_xy(torch.floor(pts) - S // 2, 0.0, W - S, H - S)
+    Cx, Cy, Ct = kc._surfaces_for_norm(kc._extract_at_origins(b, sorg, S), tq, P, norm)
+    f0 = pts - (P - 1) / 2.0 - sorg
+    frozen = ~tq.good
+    frozen[::9] = True
+    B = tq.Binv
+    sc = torch.stack([B[:, 0, 0], B[:, 0, 1], B[:, 0, 2], B[:, 1, 0], B[:, 1, 1], B[:, 1, 2],
+                      tq.tgx, tq.tgy, tq.st2, f0[:, 0], f0[:, 1], frozen.float()], -1)
+    return sc, Cx, Cy, Ct, ~frozen
+
+
 def test_four_taps_give_the_plain_loop():
     """The tent weights are non-zero only on the 2x2 cells around f, and a
     frozen lane never moves: the kernel's per-lane four-tap loop gives the
@@ -69,7 +91,7 @@ def test_four_taps_give_the_plain_loop():
     (a lane may freeze one sub-eps step apart)."""
     sc, Cx, Cy, live = _lk_problem(0, 64)
     want = kc.lk_corr_iterate(sc, Cx, Cy, ITERS, EPS, HI).numpy()
-    got, _, _ = k1_trace(sc.numpy(), Cx.numpy(), Cy.numpy(), ITERS, EPS, HI)
+    got, _, _ = lk_trace(sc.numpy(), (Cx.numpy(), Cy.numpy()), ITERS, EPS, HI)
     assert live.sum() > 40
     np.testing.assert_allclose(got[live.numpy()], want[live.numpy()], rtol=0, atol=2 * EPS)
     np.testing.assert_array_equal(want[~live.numpy()], sc[~live, 5:7].numpy())
@@ -81,10 +103,24 @@ def test_k1_trace_counts_the_sectors_the_steps_read():
     and a lane that steps reads at least its two rows' sectors: far less
     than the whole surfaces."""
     sc, Cx, Cy, live = _lk_problem(2, 40)
-    _, steps, sectors = k1_trace(sc.numpy(), Cx.numpy(), Cy.numpy(), ITERS, EPS, HI)
+    _, steps, sectors = lk_trace(sc.numpy(), (Cx.numpy(), Cy.numpy()), ITERS, EPS, HI)
     assert (steps[~live.numpy()] == 0).all() and (steps[live.numpy()] > 0).all()
     assert 2 * int(live.sum()) <= sectors <= 4 * int(steps.sum())
     assert sectors * 32 < 0.25 * Cx.numel() * 4
+
+
+@pytest.mark.parametrize("norm", ["gain", "offset"])
+def test_four_taps_give_the_plain_gain_loop(norm):
+    """K3's per-lane four-tap loop on three surfaces gives the plain
+    version's full K*K sums with a batch-wide exit, within 2 * eps, and a
+    frozen lane keeps its start point."""
+    sc, Cx, Cy, Ct, live = _gain_problem(4, 64, norm)
+    want = kc.lk_corr_iterate_gain(sc, Cx, Cy, Ct, ITERS, EPS, HI).numpy()
+    got, steps, sectors = lk_trace(sc.numpy(), (Cx.numpy(), Cy.numpy(), Ct.numpy()), ITERS, EPS, HI)
+    assert live.sum() > 40
+    np.testing.assert_allclose(got[live.numpy()], want[live.numpy()], rtol=0, atol=2 * EPS)
+    np.testing.assert_array_equal(want[~live.numpy()], sc[~live, 9:11].numpy())
+    assert (steps[~live.numpy()] == 0).all() and sectors * 32 < 0.25 * Cx.numel() * 4
 
 
 def test_plain_extract_windows_clamps_the_image_index():
@@ -101,6 +137,8 @@ def test_plain_versions_count_no_launch():
     before = dict(_cuda.launch_counts)
     sc, Cx, Cy, _ = _lk_problem(1, 8)
     kc.lk_corr_iterate(sc, Cx, Cy, ITERS, EPS, HI)
+    g = _gain_problem(1, 8, "gain")
+    kc.lk_corr_iterate_gain(*g[:4], ITERS, EPS, HI)
     extract_windows(torch.zeros((60, 94)), torch.zeros((3, 2), dtype=torch.int32), 18)
     assert _cuda.launch_counts == before
 
@@ -118,6 +156,12 @@ def test_wrappers_reject_bad_input():
         kc.lk_corr_iterate(torch.zeros((3, 8)), C, C, ITERS, EPS, 20.0)
     with pytest.raises(ValueError):
         kc.lk_corr_iterate(torch.zeros((3, 7)), C, C, ITERS, EPS, HI)
+    with pytest.raises(ValueError):
+        kc.lk_corr_iterate_gain(torch.zeros((3, 12)), C, C, C, ITERS, EPS, 20.0)
+    with pytest.raises(ValueError):
+        kc.lk_corr_iterate_gain(torch.zeros((3, 8)), C, C, C, ITERS, EPS, HI)
+    with pytest.raises(ValueError):
+        kc.lk_corr_iterate_gain(torch.zeros((3, 12)), C, C, torch.zeros((3, 20, 20)), ITERS, EPS, HI)
 
 
 @pytest.mark.cuda
@@ -176,12 +220,34 @@ def test_lk_corr_iterate_kernel_matches_plain(cuda_device, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["gain", "offset"])
+@pytest.mark.parametrize("N", [48, 96, 144])
+def test_lk_corr_iterate_gain_kernel_matches_plain(cuda_device, N, norm):
+    """K3 on the card: valid lanes within 2 * eps of the plain version on
+    strided views of one (N, 3, K, K) surface tensor; frozen lanes keep
+    their start point exactly."""
+    sc, Cx, Cy, Ct, live = _gain_problem(N, N, norm, H=480, W=752, device=cuda_device)
+    assert Cx.stride(0) == 3 * Cx.shape[-1] ** 2
+    before = _cuda.launch_counts["lk_corr_iterate_gain"]
+    got = kc.lk_corr_iterate_gain(sc, Cx, Cy, Ct, ITERS, EPS, HI)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["lk_corr_iterate_gain"] == before + 1
+    want = kc.lk_corr_iterate_gain_reference(sc, Cx, Cy, Ct, ITERS, EPS, HI)
+    assert torch.isfinite(got).all()
+    assert float((got - want)[live].abs().max()) <= 2 * EPS
+    assert torch.equal(got[~live], sc[~live, 9:11])
+
+
+@pytest.mark.cuda
 def test_cuda_tensor_never_takes_the_plain_path(cuda_device):
     """A CUDA tensor the kernel does not take raises; it is not handed to
     the plain version."""
     C = torch.zeros((3, 21, 21), device=cuda_device, dtype=torch.float64)
     with pytest.raises(TypeError):
         kc.lk_corr_iterate(torch.zeros((3, 8), device=cuda_device, dtype=torch.float64), C, C, 30, 0.01, HI)
+    with pytest.raises(TypeError):
+        kc.lk_corr_iterate_gain(torch.zeros((3, 12), device=cuda_device, dtype=torch.float64), C, C, C,
+                                30, 0.01, HI)
     with pytest.raises(TypeError):
         extract_windows(torch.zeros((60, 94), device=cuda_device, dtype=torch.float64),
                         torch.zeros((3, 2), dtype=torch.int32, device=cuda_device), 18)

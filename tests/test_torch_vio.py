@@ -147,7 +147,7 @@ def test_precision_scope():
 
 
 @pytest.mark.parametrize(
-    "option", [dict(klt_impl="gather"), dict(klt_norm="gain"), dict(ransac_enabled=True),
+    "option", [dict(klt_impl="gather"), dict(anchor_refine=False), dict(ransac_enabled=True),
                dict(stereo_lr_threshold=0.0), dict(temporal_levels=2), dict(tmpl_carry=False)]
 )
 def test_unported_frontend_options_raise(option):
