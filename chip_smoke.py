@@ -10,14 +10,19 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ``sm_90a`` (into ``build/torch_kernels/``), all sources at once;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
    card, at the shapes the main paths give it, with inputs cut from real
-   frames (K1 and K2 from the bench scene; K3 from the stress scene, with
-   'gain' and with 'offset' surfaces); kernel, plain and library-call times
-   (CUDA events) beside the least time the card could take;
+   frames (K2, ``extract_template``, the loop-only K1 and ``lk_corr_align``
+   from the bench scene; K3 from the stress scene, with 'gain' and with
+   'offset' surfaces); kernel, device, plain and library-call times (CUDA
+   events, torch.profiler) beside the least time the card could take, and
+   for ``lk_corr_align`` and ``extract_template`` the kernel chains they
+   replace, timed in the same run;
 4. main path: ``run_vio_sequence`` over the bench scene (752x480 stereo,
    the configuration ``bench.py`` runs, B=1) with the kernel launch counts
-   zeroed just before and read just after; frames/s, ATE, tracks, host syncs;
+   zeroed just before and read just after (7 ``lk_corr_align``, 4
+   ``extract_template``, 1 K2, 0 K1, 0 K3 per frame); frames/s, ATE,
+   tracks, host syncs;
 5. mode sweep: each ``klt_norm`` mode over 20 bench frames, with the exact
-   K1 / K3 / K2 launch split per frame it must give;
+   launch split per frame it must give (``MODE_SPLIT``);
 6. profile: the last bench frames again, from the state the frames before
    them leave, under ``torch.profiler``: device busy share and the kernels
    that take the device time (``<out>/profile.txt``); then once more with
@@ -25,7 +30,8 @@ Phases, each of which fails the run (exit code 1) if it fails:
 7. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
    (721 stereo frames rendered on the card with every stress channel on,
    ``klt_norm='gain'``), launch counts zeroed just before and read just
-   after (7 K3, 0 K1, 10 K2 per frame), the gate's ATE and track bars,
+   after (7 K3, 6 K2, 4 ``extract_template``, 0 ``lk_corr_align``, 0 K1
+   per frame), the gate's ATE and track bars,
    frames/s and render time; then the same run with each stage timed and
    its host syncs counted;
 8. the card's name and power limit, the ``{"kernels": [...]}`` line, then
@@ -63,9 +69,15 @@ FRAMES = 60  # main-path frames, 752x480 stereo (bench.py's scene)
 N_TAIL = 20  # last frames of the scene run again by the profile phase
 SWEEP_FRAMES = 20  # bench frames per photometric mode in the mode sweep
 STRESS_SECONDS = 36.0  # the stress gate's short run (721 stereo frames)
-# K1, K3 and K2 launches per frame for each klt_norm mode.
+# lk_corr_align, K3 and K2 launches per frame for each klt_norm mode (every
+# mode: 4 extract_template, 0 K1).  A two-surface problem ('none',
+# 'zeromean') is one lk_corr_align launch; a three-surface one is K2 (its
+# search window), conv2d and K3.  The fused call extracts its forward
+# window block (big1) with K2 in every mode, and the img0 windows (big0)
+# only where a three-surface anchor or backward problem needs them.
 MODE_SPLIT = {
-    "zeromean": (7, 0), "offset": (0, 7), "gain": (0, 7), "mixed": (0, 7), "anchor_gain": (6, 1),
+    "zeromean": (7, 0, 1), "offset": (0, 7, 6), "gain": (0, 7, 6), "mixed": (0, 7, 6),
+    "anchor_gain": (6, 1, 2),
 }
 
 KERNEL_SOURCES = {
@@ -80,6 +92,14 @@ KERNEL_SOURCES = {
     "lk_corr_iterate_gain": (
         "msckf_stereo_c_torch/csrc/lk_corr_iterate_gain.cu",
         "msckf_stereo_c_tpu/ops/klt_corr.py:144",
+    ),
+    "lk_corr_align": (
+        "msckf_stereo_c_torch/csrc/lk_corr_align.cu",
+        "msckf_stereo_c_tpu/ops/klt_corr.py:85",
+    ),
+    "extract_template": (
+        "msckf_stereo_c_torch/csrc/extract_template.cu",
+        "msckf_stereo_c_tpu/ops/patch_extract.py:28",
     ),
 }
 
@@ -130,6 +150,24 @@ def device_ms(fn, kernel: str, reps: int = 50):
     return us / n / 1e3 if us > 0 else None
 
 
+def device_ms_per_call(fn, reps: int = 50):
+    """Mean device time in ms of one call of ``fn``: every kernel and copy
+    it launches, as torch.profiler records them over ``reps`` calls; None
+    when it records none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
+
+
 def _fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
@@ -162,8 +200,9 @@ def lk_trace(sc, surfaces, iters: int, eps: float, hi: float):
     each lane stopping on its own.
 
     Returns the final points (N, 2), the Gauss-Newton steps of each lane,
-    and the distinct 32-byte sectors of one (N, K, K) float32 surface that
-    those steps read (the same cells of every surface).  What the kernel
+    the distinct 32-byte sectors of one (N, K, K) float32 surface that
+    those steps read (the same cells of every surface), and the distinct
+    cells they read as flat indices (lane * K + y) * K + x.  What the kernel
     must read and compute on given inputs depends on where and how long
     each lane walks: a lane that starts frozen reads no surface at all."""
     import numpy as np
@@ -205,8 +244,44 @@ def lk_trace(sc, surfaces, iters: int, eps: float, hi: float):
         fx = np.where(act, np.clip(fx + d[:, 0], 0, hi), fx)
         fy = np.where(act, np.clip(fy + d[:, 1], 0, hi), fy)
         conv = conv | (act & (np.hypot(d[:, 0], d[:, 1]) < eps))
-    sectors = np.unique(np.concatenate(touched) * 4 // SECTOR_BYTES).size
-    return np.stack([fx, fy], -1), steps, sectors
+    cells = np.unique(np.concatenate(touched))
+    sectors = np.unique(cells * 4 // SECTOR_BYTES).size
+    return np.stack([fx, fy], -1), steps, sectors, cells
+
+
+def footprint_sectors(origins, cells, S: int, P: int, H: int, W: int) -> int:
+    """Distinct 32-byte sectors of a float32 (H, W) image that the surface
+    cells ``cells`` (flat indices (lane * K + y) * K + x, as ``lk_trace``
+    returns them, K = S - P + 1) of the (S, S) windows at ``origins``
+    (N, 2) [x, y] read: each cell's correlation reads the (P, P) pixels at
+    its window's clamped origin plus (x, y)."""
+    import numpy as np
+
+    K = S - P + 1
+    o = np.asarray(origins, np.int64).reshape(-1, 2)
+    ox = np.clip(o[:, 0], 0, W - S)
+    oy = np.clip(o[:, 1], 0, H - S)
+    c = np.asarray(cells, np.int64)
+    lane, y, x = c // (K * K), c // K % K, c % K
+    return window_sectors(np.stack([ox[lane] + x, oy[lane] + y], 1), P, H, W)
+
+
+def window_sectors(origins, S: int, H: int, W: int, img_index=None) -> int:
+    """Distinct 32-byte sectors of a float32 (B, H, W) image stack (32-byte
+    aligned) under the (S, S) windows at integer ``origins`` (N, 2) [x, y],
+    clamped into the image as the kernels clamp them, in the images
+    ``img_index`` (N,) (image 0 without)."""
+    import numpy as np
+
+    o = np.asarray(origins, np.int64).reshape(-1, 2)
+    ox = np.clip(o[:, 0], 0, W - S)
+    oy = np.clip(o[:, 1], 0, H - S)
+    b = np.zeros_like(ox) if img_index is None else np.asarray(img_index, np.int64)
+    first = ((b[:, None] * H + oy[:, None] + np.arange(S)) * W + ox[:, None]) * 4  # (N, S) row starts
+    lo = first // SECTOR_BYTES
+    hi = (first + 4 * S - 1) // SECTOR_BYTES
+    sec = lo[..., None] + np.arange(int((hi - lo).max(initial=0)) + 1)
+    return int(np.unique(sec[sec <= hi[..., None]]).size)
 
 
 def phase_device():
@@ -286,9 +361,190 @@ def phase_kernels(img0, img1, fcfg):
             print(f"[K2] level {lvl} {W}x{H} S={S} N={N}: bit-exact; per call {ms:.4f} ms (device "
                   f"{_fmt(dev_ms)}), plain {plain:.4f} ms, unfold+index {lib:.4f} ms, bound {b:.5f} ms ({by})")
 
-    # K1 on correlation surfaces of real features: FAST corners of one frame
-    # tracked into the next frame at full resolution.
-    return rows + lk_rows("K1", pyr_a[0], pyr_b[0], fcfg, "none")
+    # The template kernel, K1 and lk_corr_align on real features: FAST
+    # corners of one frame tracked into the next.
+    corners = _best_corners(pyr_a[0], fcfg, 144)
+    rows += template_rows(pyr_a, corners, fcfg.patch_size)
+    rows += lk_rows("K1", pyr_a[0], pyr_b[0], fcfg, "none")
+    return rows + align_rows(pyr_a, pyr_b, corners, fcfg)
+
+
+def _best_corners(img, fcfg, n):
+    """The ``n`` strongest FAST grid corners of ``img`` (N, 2) [x, y]."""
+    import torch
+
+    from msckf_stereo_c_torch.ops.fast import detect_grid_corners
+
+    corners = detect_grid_corners(img, float(fcfg.fast_threshold), fcfg.detector_cell)
+    order = torch.argsort(torch.where(corners.valid, corners.score, -1.0), descending=True)
+    return corners.xy[order[:n]].contiguous()
+
+
+def template_rows(pyr, corners, P):
+    """``extract_template`` bit-exact against its plain version on every
+    pyramid level: 138 corners of level 0 scaled to the level, plus six
+    points at and past the image edges that the kernel must clamp; per-call,
+    device, plain, library (``grid_sample``) and bound times, beside the
+    pair it replaces (origins and offsets, K2, the four-slice blend)."""
+    import torch
+    import torch.nn.functional as F
+
+    from msckf_stereo_c_torch.ops import klt_corr as kc
+
+    rows = []
+    q, Tq = P + 2, P + 3
+    for lvl, img in enumerate(pyr):
+        H, W = img.shape
+        edge = torch.tensor([[0.0, 0.0], [W - 1.0, H - 1.0], [-3.2, 5.5], [W + 2.7, H / 2.0],
+                             [0.4, H - 0.6], [W - 1.5, 0.25]], device=img.device)
+        pts = torch.cat([corners[:138] / 2.0**lvl, edge]).contiguous()
+        N = pts.shape[0]
+        got = kc.extract_template(img, pts, P)
+        want = kc.extract_template_reference(img, pts, P)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"extract_template differs from its plain version at level {lvl}")
+
+        def before():
+            torg, a = kc._template_geometry(pts, P, H, W)
+            return kc._blend_template(kc._extract_at_origins(img, torg, Tq), a, P)
+
+        check(torch.equal(before(), want), f"the K2 + blend template pair differs at level {lvl}")
+        c = torch.arange(q, device=img.device, dtype=torch.float32)
+        x = (pts[:, 0, None, None] - (P + 1) / 2.0 + c[None, None, :]).expand(N, q, q)
+        y = (pts[:, 1, None, None] - (P + 1) / 2.0 + c[None, :, None]).expand(N, q, q)
+        grid = torch.stack([2.0 * x / (W - 1) - 1.0, 2.0 * y / (H - 1) - 1.0], -1).reshape(1, N * q, q, 2)
+        ms = cuda_ms(lambda: kc.extract_template(img, pts, P), reps=200)
+        plain = cuda_ms(lambda: kc.extract_template_reference(img, pts, P), reps=50)
+        lib = cuda_ms(lambda: F.grid_sample(img[None, None], grid, mode="bilinear", align_corners=True), reps=200)
+        before_ms = cuda_ms(before, reps=200)
+        dev_ms = device_ms(lambda: kc.extract_template(img, pts, P), "extract_template_kernel")
+        before_dev = device_ms_per_call(before)
+        torg, _ = kc._template_geometry(pts, P, H, W)
+        n_bytes = window_sectors(torg.long().cpu().numpy(), Tq, H, W) * SECTOR_BYTES + N * q * q * 4 + N * 2 * 4
+        b, by = bound_ms(n_bytes, 0)
+        rows.append(dict(name="extract_template", level=lvl, H=H, W=W, N=N, max_abs_err=err, ms=ms,
+                         device_ms=dev_ms, plain_ms=plain, library_ms=lib, before_ms=before_ms,
+                         before_device_ms=before_dev, bound_bytes=n_bytes, bound_ms=b, bound_by=by))
+        print(f"[template] level {lvl} {W}x{H} N={N}: bit-exact; per call {ms:.4f} ms (device {_fmt(dev_ms)}), "
+              f"before (K2 + blend) {before_ms:.4f} ms (device {_fmt(before_dev)}), plain {plain:.4f} ms, "
+              f"grid_sample {lib:.4f} ms, bound {b:.6f} ms ({by}, {n_bytes} B)")
+    return rows
+
+
+def align_rows(pyr_a, pyr_b, corners, fcfg):
+    """``lk_corr_align`` against its plain version (the composition it
+    replaces) on the bench features: at level 0 for N = 48 / 96 / 144, timed
+    beside the chain it replaces (K2 + weight stack + ``conv2d`` + K1) and
+    ``conv2d`` alone; at levels 1-3 (N=48, the corners scaled as the coarse
+    walk scales them; level 3's 94-pixel rows take the 4-byte copies) as a
+    check.  Surfaces within 1e-5 x max|C| of ``conv2d``'s; final points
+    within K1_TOL; valid masks equal except lanes whose point lies within
+    K1_TOL of the in-bounds border."""
+    import torch
+    import torch.nn.functional as F
+
+    from msckf_stereo_c_torch.config import matmul_precision_scope
+    from msckf_stereo_c_torch.ops import klt_corr as kc
+    from msckf_stereo_c_torch.ops.patch_extract import extract_windows, extract_windows_reference
+
+    P, iters, eps = fcfg.patch_size, fcfg.max_iteration, fcfg.track_precision
+    c_off = (P - 1) / 2.0
+    r = P // 2 + 1
+    rows = []
+    for lvl, N in ((0, 48), (0, 96), (0, 144), (1, 48), (2, 48), (3, 48)):
+        img_a, img_b = pyr_a[lvl], pyr_b[lvl]
+        H, W = img_a.shape
+        S = min(P + 2 * kc._SEARCH_RADIUS + 2, H, W)
+        K, hi = S - P + 1, float(S - P - 1)
+        pts = (corners[:N] / 2.0**lvl).contiguous()
+        with matmul_precision_scope(fcfg.matmul_precision):
+            tq = kc._template_quantities(kc.extract_template(img_a, pts, P), P, "none")
+        sorg = kc._clip_xy(torch.floor(pts) - S // 2, 0.0, W - S, H - S)
+        org = sorg.to(torch.int32)
+        f0 = pts - c_off - sorg
+        sc = kc._k1_sc(tq, f0, ~tq.good)
+        args = (img_b, org, S, tq.gx, tq.gy, sc, iters, eps, hi)
+        surf = torch.empty((N, 2, K, K), device=img_b.device)
+        surf_ref = torch.empty_like(surf)
+        got = kc.lk_corr_align(*args, surfaces_out=surf)
+        with matmul_precision_scope(fcfg.matmul_precision):
+            want = kc.lk_corr_align_reference(*args, surfaces_out=surf_ref)
+        # The variant the main path launches (no surfaces out: frozen lanes
+        # return before any copy) gives the same points, so every check on
+        # ``got`` below holds for it.
+        check(torch.equal(kc.lk_corr_align(*args), got),
+              f"lk_corr_align without surfaces_out differs from the launch with it at level {lvl}, N={N}")
+        torch.cuda.synchronize()
+        cmax = float(surf_ref.abs().max())
+        serr = float((surf - surf_ref).abs().max())
+        check(serr <= 1e-5 * cmax, f"lk_corr_align surfaces differ by {serr} (> 1e-5 x {cmax}) at level {lvl}, N={N}")
+
+        def pts_of(f):
+            return f + c_off + sorg
+
+        def ok_mask(p):
+            return tq.good & (p[:, 0] >= r) & (p[:, 0] < W - r) & (p[:, 1] >= r) & (p[:, 1] < H - r)
+
+        pw = pts_of(want)
+        border = torch.stack([pw[:, 0] - r, (W - r) - pw[:, 0], pw[:, 1] - r, (H - r) - pw[:, 1]], -1)
+        near = border.abs().min(-1).values < K1_TOL
+        m_want = ok_mask(pw)
+        check(torch.equal(ok_mask(pts_of(got))[~near], m_want[~near]),
+              f"lk_corr_align valid mask differs at level {lvl}, N={N}")
+        check(bool(torch.isfinite(got).all()), f"lk_corr_align gave non-finite output at level {lvl}, N={N}")
+        check(torch.equal(got[~tq.good], f0[~tq.good]), f"lk_corr_align moved a frozen lane at level {lvl}, N={N}")
+        err = float((got - want)[m_want].abs().max()) if bool(m_want.any()) else 0.0
+        check(err <= K1_TOL, f"lk_corr_align differs by {err} px (> {K1_TOL}) at level {lvl}, N={N}")
+        row = dict(name="lk_corr_align", level=lvl, W=W, H=H, N=N, S=S, K=K, valid=int(m_want.sum()),
+                   near_border=int(near.sum()), max_abs_err=err, surface_err=serr, surface_max=cmax)
+        rows.append(row)
+        msg = (f"[align] level {lvl} {W}x{H} N={N}: {int(m_want.sum())} valid lanes, masks equal "
+               f"({int(near.sum())} lanes within {K1_TOL} px of the border exempt), max |df| {err:.2e} px "
+               f"(tol {K1_TOL}), surfaces within {serr:.3g} of max |C| {cmax:.4g}")
+        if lvl:
+            print(msg)
+            continue
+
+        _, steps, _, cells = lk_trace(sc.cpu().numpy(), (surf_ref[:, 0].cpu().numpy(), surf_ref[:, 1].cpu().numpy()),
+                                      iters, eps, hi)
+        n_step = int((steps > 0).sum())
+        # sc read, f written, each stepping lane's two filters, and the image
+        # pixels under the (P, P) footprints of the surface cells the steps
+        # touch: the result depends on nothing else.
+        n_bytes = (footprint_sectors(org.cpu().numpy(), cells, S, P, H, W) * SECTOR_BYTES
+                   + 2 * n_step * P * P * 4 + N * 8 * 4 + N * 2 * 4)
+        n_ops = int(steps.sum()) * K1_OPS_PER_STEP + cells.size * 2 * P * P * 2
+        b, by = bound_ms(n_bytes, n_ops)
+        full_ms = 2 * N * K * K * P * P * 2 / F32_OPS_PER_S * 1e3
+        spatch = extract_windows_reference(img_b, org, S)
+        weight = torch.stack([tq.gx, tq.gy], 1).reshape(2 * N, 1, P, P)
+
+        def chain():
+            Cx, Cy = kc._corr_surfaces(extract_windows(img_b, org, S), tq.gx, tq.gy, P)
+            return kc.lk_corr_iterate(sc, Cx, Cy, iters, eps, hi)
+
+        with matmul_precision_scope(fcfg.matmul_precision):
+            ms = cuda_ms(lambda: kc.lk_corr_align(*args), reps=200)
+            before_ms = cuda_ms(chain, reps=200)
+            lib = cuda_ms(lambda: F.conv2d(spatch[None], weight, groups=N), reps=200)
+            plain = cuda_ms(lambda: kc.lk_corr_align_reference(*args), reps=10)
+            dev_ms = device_ms(lambda: kc.lk_corr_align(*args), "lk_corr_align_kernel")
+            # The same launch with no LK step: window copies and surfaces only.
+            dev0_ms = device_ms(lambda: kc.lk_corr_align(*args[:6], 0, eps, hi), "lk_corr_align_kernel")
+            before_dev = device_ms_per_call(chain)
+        row.update(lane_steps=int(steps.sum()), max_steps=int(steps.max()), stepping_lanes=n_step,
+                   touched_cells=int(cells.size), bound_bytes=n_bytes, bound_ops=n_ops, ms=ms, device_ms=dev_ms,
+                   device_ms_no_steps=dev0_ms, plain_ms=plain, library_ms=lib, before_ms=before_ms,
+                   before_device_ms=before_dev, bound_ms=b, bound_by=by, full_surface_ms=full_ms)
+        print(msg)
+        print(f"[align]   {int(steps.sum())} lane steps (max {int(steps.max())}) over {n_step} stepping lanes, "
+              f"{int(cells.size)} cells touched; per call {ms:.4f} ms (device {_fmt(dev_ms)}, "
+              f"{_fmt(dev0_ms)} with no step); before "
+              f"(K2 + conv2d + K1) {before_ms:.4f} ms (device {_fmt(before_dev)}); conv2d alone {lib:.4f} ms; "
+              f"plain {plain:.4f} ms; bound {b:.7f} ms ({by}: {n_bytes} B, {n_ops} flops); whole surfaces "
+              f"{full_ms:.6f} ms")
+    return rows
 
 
 def phase_main_path(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
@@ -343,9 +599,9 @@ def phase_main_path(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
     print(f"[main] launches: {counts}")
     check(ate < 0.13, f"ATE {ate} m is above the 0.13 m pass bar")
     check(np.min(tracks[1:]) >= 10, "the tracker lost the scene")
-    check(counts["lk_corr_iterate"] == 7 * T, f"lk_corr_iterate launched {counts['lk_corr_iterate']} times, expected 7/frame")
-    check(counts["extract_windows"] == 10 * T, f"extract_windows launched {counts['extract_windows']} times, expected 10/frame")
-    check(counts["lk_corr_iterate_gain"] == 0, "lk_corr_iterate_gain launched under klt_norm='none'")
+    want = dict(lk_corr_align=7, extract_template=4, extract_windows=1, lk_corr_iterate=0, lk_corr_iterate_gain=0)
+    check(counts == {k: v * T for k, v in want.items()},
+          f"main path launches {counts}, expected per frame {want}")
     return out
 
 
@@ -401,7 +657,6 @@ def lk_rows(tag, img_a, img_b, fcfg, norm):
 
     from msckf_stereo_c_torch.config import matmul_precision_scope
     from msckf_stereo_c_torch.ops import klt_corr as kc
-    from msckf_stereo_c_torch.ops.fast import detect_grid_corners
 
     P, iters, eps = fcfg.patch_size, fcfg.max_iteration, fcfg.track_precision
     H, W = img_a.shape
@@ -409,13 +664,12 @@ def lk_rows(tag, img_a, img_b, fcfg, norm):
     hi = float(S - P - 1)
     c_off = (P - 1) / 2.0
     r = P // 2 + 1
-    corners = detect_grid_corners(img_a, float(fcfg.fast_threshold), fcfg.detector_cell)
-    order = torch.argsort(torch.where(corners.valid, corners.score, -1.0), descending=True)
+    corners = _best_corners(img_a, fcfg, 144)
     rows = []
     for N in (48, 96, 144):
-        pts = corners.xy[order[:N]]
+        pts = corners[:N]
         with matmul_precision_scope(fcfg.matmul_precision):
-            tq = kc._template_quantities(kc._interp_template(img_a, pts, P), P, norm)
+            tq = kc._template_quantities(kc.extract_template(img_a, pts, P), P, norm)
             sorg = kc._clip_xy(torch.floor(pts) - S // 2, 0.0, W - S, H - S)
             Cx, Cy, Ct = kc._surfaces_for_norm(kc._extract_at_origins(img_b, sorg, S), tq, P, norm)
         f0 = pts - c_off - sorg
@@ -447,8 +701,8 @@ def lk_rows(tag, img_a, img_b, fcfg, norm):
         err = float((got - want)[m_want].abs().max()) if bool(m_want.any()) else 0.0
         check(err <= K1_TOL, f"{name} differs by {err} px (> {K1_TOL}) at N={N} ({norm})")
         K, ns = Cx.shape[-1], len(surfaces)
-        _, steps, sectors = lk_trace(args[0].cpu().numpy(), tuple(c.cpu().numpy() for c in surfaces),
-                                     iters, eps, hi)
+        _, steps, sectors, _ = lk_trace(args[0].cpu().numpy(), tuple(c.cpu().numpy() for c in surfaces),
+                                        iters, eps, hi)
         # sc read, f written, and the sectors of each surface the steps visit.
         n_bytes = sc.numel() * 4 + N * 2 * 4 + ns * sectors * SECTOR_BYTES
         ms = cuda_ms(lambda: fn(*args), reps=200)
@@ -468,8 +722,8 @@ def lk_rows(tag, img_a, img_b, fcfg, norm):
 
 def phase_mode_sweep(traj, imu, frame_idx, img0, img1, mcfg):
     """Each photometric mode over the first SWEEP_FRAMES bench frames: the
-    exact K1 / K3 / K2 launch split per frame (MODE_SPLIT), and finite
-    poses."""
+    exact lk_corr_align / K3 / K2 launch split per frame (MODE_SPLIT), with
+    4 extract_template and 0 K1 launches per frame, and finite poses."""
     import numpy as np
     import torch
 
@@ -480,7 +734,7 @@ def phase_mode_sweep(traj, imu, frame_idx, img0, img1, mcfg):
     T = SWEEP_FRAMES
     frame_t = traj.t[frame_idx[:T]]
     out = {}
-    for mode, (k1, k3) in MODE_SPLIT.items():
+    for mode, (al, k3, k2) in MODE_SPLIT.items():
         fcfg = FrontendConfig(temporal_levels=1, klt_norm=mode)
         _cuda.reset_launch_counts()
         t0 = time.perf_counter()
@@ -489,14 +743,17 @@ def phase_mode_sweep(traj, imu, frame_idx, img0, img1, mcfg):
                                device="cuda")
         secs = time.perf_counter() - t0
         c = dict(_cuda.launch_counts)
-        per = (c["lk_corr_iterate"] / T, c["lk_corr_iterate_gain"] / T, c["extract_windows"] / T)
+        per = {k: v / T for k, v in c.items()}
         out[mode] = dict(launches=c, seconds=secs, tracks_per_frame_mean=float(np.mean(res.tracking["after_ransac"])))
-        print(f"[modes] {mode:11s}: K1 {per[0]:.0f}, K3 {per[1]:.0f}, K2 {per[2]:.0f} launches/frame over {T} "
-              f"frames ({secs:.2f} s incl. first-call set-up), {out[mode]['tracks_per_frame_mean']:.1f} tracks/frame")
+        print(f"[modes] {mode:11s}: lk_corr_align {per['lk_corr_align']:.0f}, extract_template "
+              f"{per['extract_template']:.0f}, K2 {per['extract_windows']:.0f}, K1 {per['lk_corr_iterate']:.0f}, "
+              f"K3 {per['lk_corr_iterate_gain']:.0f} launches/frame over {T} frames ({secs:.2f} s incl. "
+              f"first-call set-up), {out[mode]['tracks_per_frame_mean']:.1f} tracks/frame")
         check(bool(np.isfinite(res.positions).all()), f"non-finite poses under klt_norm={mode!r}")
-        check(c["lk_corr_iterate"] == k1 * T and c["lk_corr_iterate_gain"] == k3 * T
-              and c["extract_windows"] == 10 * T,
-              f"klt_norm={mode!r}: launches {c}, expected K1 {k1}, K3 {k3}, K2 10 per frame")
+        want = dict(lk_corr_align=al, extract_template=4, extract_windows=k2, lk_corr_iterate=0,
+                    lk_corr_iterate_gain=k3)
+        check(c == {k: v * T for k, v in want.items()},
+              f"klt_norm={mode!r}: launches {c}, expected per frame {want}")
     return out
 
 
@@ -552,9 +809,9 @@ def phase_stress(card):
           f"mean {tracks.mean():.1f} (bar 30), min {gate.min_tracks_after_ransac} (bar > 3)")
     print(f"[stress] launches: {counts}; peak device memory {out['peak_memory_gb']:.2f} GB")
     check(bool(np.isfinite(gate.result.positions).all()), "non-finite poses on the stress path")
-    check(counts["lk_corr_iterate_gain"] == 7 * T and counts["lk_corr_iterate"] == 0
-          and counts["extract_windows"] == 10 * T,
-          f"stress path launches {counts}, expected K3 7, K1 0, K2 10 per frame")
+    want = dict(lk_corr_align=0, extract_template=4, extract_windows=6, lk_corr_iterate=0, lk_corr_iterate_gain=7)
+    check(counts == {k: v * T for k, v in want.items()},
+          f"stress path launches {counts}, expected per frame {want}")
     check(gate.ate_rmse < 0.13, f"stress ATE {gate.ate_rmse} m is above the 0.13 m bar")
     check(gate.min_tracks_after_ransac > 3, f"stress min tracks {gate.min_tracks_after_ransac} (bar > 3)")
     check(tracks.mean() > 30, f"stress mean tracks {tracks.mean()} (bar > 30)")
@@ -740,14 +997,17 @@ def main(argv=None) -> int:
     stress_out = phase_stress(card)
 
     pick = {
+        "lk_corr_align": next(r for r in rows if r["name"] == "lk_corr_align" and r["level"] == 0
+                              and r["N"] == 144),
+        "extract_template": next(r for r in rows if r["name"] == "extract_template" and r["level"] == 0),
         "lk_corr_iterate": next(r for r in rows if r["name"] == "lk_corr_iterate" and r["N"] == 144),
         "extract_windows": next(r for r in rows if r["name"] == "extract_windows" and r["level"] == 0
                                 and r["S"] == 37),
         "lk_corr_iterate_gain": next(r for r in rows if r["name"] == "lk_corr_iterate_gain" and r["N"] == 144
                                      and r["norm"] == "gain"),
     }
-    # K1 and K2 launch counts come from the bench path, K3's from the stress
-    # path (the bench path runs klt_norm='none', which never launches K3).
+    # Launch counts come from the bench path, K3's from the stress path (the
+    # bench path runs klt_norm='none', which never launches K3).
     launches = dict(main_out["launches"], lk_corr_iterate_gain=stress_out["launches"]["lk_corr_iterate_gain"])
     kernels = []
     for kname, (source, replaces) in KERNEL_SOURCES.items():

@@ -37,6 +37,11 @@ _SIGNATURES = {
     "lk_corr_iterate_gain": (
         _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P,
     ),
+    "lk_corr_align": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _I,
+        ctypes.c_float, ctypes.c_float, _I, _P,
+    ),
+    "extract_template": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _P),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

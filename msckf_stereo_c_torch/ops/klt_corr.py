@@ -7,19 +7,23 @@ problem precomputes two (K, K) cross-correlations of the template gradients
 with its search window (K = S - P + 1) and every Gauss-Newton step only
 interpolates them bilinearly (see the JAX module for the identity).
 
-Three kernels carry it on the card: ``lk_corr_iterate`` (the iteration
-loop, ``csrc/lk_corr_iterate.cu``; norms 'none' and 'zeromean'),
-``lk_corr_iterate_gain`` (the affine-photometric loop with a third surface,
-``csrc/lk_corr_iterate_gain.cu``; norms 'offset' and 'gain') and
-``patch_extract.extract_windows`` (the template and search windows).  A CPU
-tensor takes each kernel's plain version.  The correlation surfaces are a
-depthwise ``conv2d`` and the backward template's resampling an ``einsum``,
-as the JAX package left them to XLA.
+Kernels on the card (a CPU tensor takes each kernel's plain version):
 
-Templates always come from the (P+3) window plus four static bilinear
-slices (``_interp_template``), the formula the TPU ran; the template carried
-from the stereo call into the next temporal call depends on one formula for
-both.
+- ``lk_corr_align`` (``csrc/lk_corr_align.cu``): search window, both
+  surfaces and the LK loop of one two-surface problem ('none',
+  'zeromean') in one launch.  Every two-surface call goes through it.
+- ``extract_template`` (``csrc/extract_template.cu``): the (P+3) template
+  window interpolated as it is copied.
+- ``lk_corr_iterate_gain`` (``csrc/lk_corr_iterate_gain.cu``): the
+  affine-photometric loop with a third surface ('offset', 'gain'), fed by
+  ``patch_extract.extract_windows`` and a depthwise ``conv2d``.
+- ``lk_corr_iterate`` (``csrc/lk_corr_iterate.cu``): the loop alone on
+  precomputed surfaces; no path launches it any more.
+
+The backward template's resampling is an ``einsum``, as the JAX package
+left it to XLA.  Templates always come from the (P+3) window plus four
+bilinear terms, the formula the TPU ran; the template carried from the
+stereo call into the next temporal call depends on one formula for both.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from .patch_extract import extract_windows
+from .patch_extract import extract_windows, extract_windows_reference, image_index_ptr, image_stack
 
 # Search radius beyond the window per level (klt_gemm.py:_SEARCH_RADIUS).
 _SEARCH_RADIUS = 9
@@ -171,13 +175,18 @@ def _surfaces_for_norm(spatch: torch.Tensor, tq: TemplateQ, P: int, norm: str):
         return Cx, Cy, None
     if norm == "offset":
         return _corr_surfaces(spatch, tq.gx, tq.gy, P, extra=(torch.ones_like(tq.gx),))
-    n = float(P * P)
-    gxc = tq.gx - (tq.sgx / n)[:, None, None]
-    gyc = tq.gy - (tq.sgy / n)[:, None, None]
+    gxc, gyc = _centred_filters(tq, P)
     if norm == "zeromean":
         Cx, Cy = _corr_surfaces(spatch, gxc, gyc, P)
         return Cx, Cy, None
     return _corr_surfaces(spatch, gxc, gyc, P, extra=(tq.tmpl_c,))
+
+
+def _centred_filters(tq: TemplateQ, P: int):
+    """Mean-centred gradient filters: the zero-mean correction of
+    'zeromean' and 'gain' folded into the surfaces by linearity."""
+    n = float(P * P)
+    return tq.gx - (tq.sgx / n)[:, None, None], tq.gy - (tq.sgy / n)[:, None, None]
 
 
 def lk_corr_iterate_reference(
@@ -225,6 +234,8 @@ def _launch_lk(name: str, reference, sc, surfaces, iters, eps, hi) -> torch.Tens
         raise ValueError(f"{name}: sc (N, {ncols}) and {len(surfaces)} surfaces (N, K, K) expected")
     if not 0.0 <= hi <= K - 2:
         raise ValueError(f"hi={hi} must lie in [0, K-2] so all four taps stay in range")
+    if N == 0:  # the kernel launches nothing for it, so nothing is counted
+        return torch.empty((0, 2), dtype=sc.dtype, device=sc.device)
     if sc.device.type == "cpu":
         return reference(sc, *surfaces, iters, eps, hi)
     if sc.device.type != "cuda":
@@ -317,24 +328,113 @@ def lk_corr_iterate_gain(
     )
 
 
-def _run_iterations(Cx, Cy, tq: TemplateQ, f0, conv0, iters, eps, S, P, Ct=None):
-    """Converged window-origin coordinates f (N, 2) for one alignment;
-    a ``Ct`` selects the affine-photometric loop (K3) over K1."""
-    hi = float(S - P - 1)
-    if Ct is not None:
-        B = tq.Binv
-        sc = torch.stack(
-            [B[:, 0, 0], B[:, 0, 1], B[:, 0, 2], B[:, 1, 0], B[:, 1, 1], B[:, 1, 2],
-             tq.tgx, tq.tgy, tq.st2, f0[:, 0], f0[:, 1], conv0.to(Cx.dtype)],
-            dim=-1,
-        )
-        return lk_corr_iterate_gain(sc, Cx, Cy, Ct, iters, eps, hi)
+def _align_smem_bytes(S: int, P: int) -> int:
+    """Shared memory of one ``lk_corr_align`` block: the window at a row
+    pitch of the least multiple of 4 above S + 3 floats, the (gx, gy) taps
+    and the (Cx, Cy) cells (``csrc/lk_corr_align.cu:window_pitch``)."""
+    K = S - P + 1
+    return 4 * S * (((S + 3) | 3) + 1) + 8 * (P * P + K * K)
+
+
+def lk_corr_align_reference(
+    img: torch.Tensor, origins: torch.Tensor, S: int, gx: torch.Tensor, gy: torch.Tensor,
+    sc: torch.Tensor, iters: int, eps: float, hi: float,
+    img_index: torch.Tensor | None = None, surfaces_out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of ``lk_corr_align``: the composition it replaces,
+    ``extract_windows_reference`` -> ``_corr_surfaces`` ->
+    ``lk_corr_iterate_reference``."""
+    P = gx.shape[-1]
+    spatch = extract_windows_reference(img, origins, S, img_index)
+    Cx, Cy = _corr_surfaces(spatch, gx, gy, P)
+    if surfaces_out is not None:
+        surfaces_out.copy_(torch.stack([Cx, Cy], dim=1))
+    return lk_corr_iterate_reference(sc, Cx, Cy, iters, eps, hi)
+
+
+def lk_corr_align(
+    img: torch.Tensor, origins: torch.Tensor, S: int, gx: torch.Tensor, gy: torch.Tensor,
+    sc: torch.Tensor, iters: int, eps: float, hi: float,
+    img_index: torch.Tensor | None = None, surfaces_out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One two-surface LK problem per feature in one launch: the (S, S)
+    search window at int32 ``origins`` (N, 2) [x, y] of ``img`` ((H, W), or
+    (B, H, W) with int32 ``img_index`` (N,)), its correlation surfaces with
+    the filters ``gx``, ``gy`` (N, P, P), and up to ``iters`` LK steps from
+    sc (N, 8) in K1's layout.  Returns the final window-origin coordinates
+    f (N, 2), each clamped to [0, hi]; ``surfaces_out`` (N, 2, K, K), when
+    given, receives the surfaces."""
+    imgs = image_stack(img)
+    B, H, W = imgs.shape
+    N = origins.shape[0]
+    P = gx.shape[-1]
+    K = S - P + 1
+    if origins.shape != (N, 2) or sc.shape != (N, 8):
+        raise ValueError("lk_corr_align: origins (N, 2) and sc (N, 8) expected")
+    if gx.shape != (N, P, P) or gy.shape != (N, P, P):
+        raise ValueError("lk_corr_align: filters gx, gy (N, P, P) expected")
+    if not (P < S <= min(H, W)):
+        raise ValueError(f"lk_corr_align: window {S} must exceed P={P} and fit a {H}x{W} image")
+    if not 0.0 <= hi <= K - 2:
+        raise ValueError(f"hi={hi} must lie in [0, K-2] so all four taps stay in range")
+    if _align_smem_bytes(S, P) > 48 * 1024:
+        raise ValueError(f"lk_corr_align: S={S}, P={P} need more than 48 KB of shared memory")
+    if img_index is None and B != 1:
+        raise ValueError("a (B, H, W) stack with B > 1 needs img_index")
+    if surfaces_out is not None and surfaces_out.shape != (N, 2, K, K):
+        raise ValueError(f"lk_corr_align: surfaces_out (N, 2, {K}, {K}) expected")
+    if N == 0:  # the kernel launches nothing for it, so nothing is counted
+        return torch.empty((0, 2), dtype=sc.dtype, device=sc.device)
+    if imgs.device.type == "cpu":
+        return lk_corr_align_reference(imgs, origins, S, gx, gy, sc, iters, eps, hi, img_index, surfaces_out)
+    if imgs.device.type != "cuda":
+        raise ValueError(f"unsupported device {imgs.device}")
+    tensors = (imgs, gx, gy, sc) + (() if surfaces_out is None else (surfaces_out,))
+    if any(t.dtype != torch.float32 for t in tensors) or origins.dtype != torch.int32:
+        raise TypeError("lk_corr_align takes float32 tensors and int32 origins")
+    if any(t.device != imgs.device for t in tensors + (origins,)):
+        raise ValueError("lk_corr_align inputs must lie on one device")
+    if not imgs.is_contiguous() or not (surfaces_out is None or surfaces_out.is_contiguous()):
+        raise ValueError("lk_corr_align takes a contiguous image and surfaces_out")
+    # The per-feature inputs are small; filters of a resampled template
+    # (the backward problem) come in a permuted layout.
+    origins, gx, gy, sc = (t.contiguous() for t in (origins, gx, gy, sc))
+    out = torch.empty((N, 2), dtype=sc.dtype, device=sc.device)
+    # 16-byte row copies need 16-byte aligned rows: W a multiple of 4 floats.
+    vec = int(W % 4 == 0 and imgs.data_ptr() % 16 == 0)
+    fn = _cuda.kernel_function("lk_corr_align")
+    rc = fn(
+        imgs.data_ptr(), origins.data_ptr(), image_index_ptr(img_index, N, imgs),
+        gx.data_ptr(), gy.data_ptr(), sc.data_ptr(), out.data_ptr(),
+        None if surfaces_out is None else surfaces_out.data_ptr(),
+        N, B, H, W, H * W, S, P, int(iters), float(eps), float(hi), vec,
+        torch.cuda.current_stream(imgs.device).cuda_stream,
+    )
+    _cuda.check_launch("lk_corr_align", rc)
+    _cuda.launch_counts["lk_corr_align"] += 1
+    return out
+
+
+def _run_iterations(Cx, Cy, Ct, tq: TemplateQ, f0, conv0, iters, eps, S, P):
+    """Converged window-origin coordinates f (N, 2) of one three-surface
+    alignment by the affine-photometric loop (K3)."""
+    B = tq.Binv
     sc = torch.stack(
-        [tq.G[:, 0, 0], tq.G[:, 0, 1], tq.G[:, 1, 1], tq.tgx, tq.tgy,
-         f0[:, 0], f0[:, 1], conv0.to(Cx.dtype)],
+        [B[:, 0, 0], B[:, 0, 1], B[:, 0, 2], B[:, 1, 0], B[:, 1, 1], B[:, 1, 2],
+         tq.tgx, tq.tgy, tq.st2, f0[:, 0], f0[:, 1], conv0.to(Cx.dtype)],
         dim=-1,
     )
-    return lk_corr_iterate(sc, Cx, Cy, iters, eps, hi)
+    return lk_corr_iterate_gain(sc, Cx, Cy, Ct, iters, eps, float(S - P - 1))
+
+
+def _k1_sc(tq: TemplateQ, f0, conv0) -> torch.Tensor:
+    """K1's per-feature scalars (N, 8) = (gxx, gxy, gyy, tgx, tgy, f0x, f0y,
+    converged0)."""
+    return torch.stack(
+        [tq.G[:, 0, 0], tq.G[:, 0, 1], tq.G[:, 1, 1], tq.tgx, tq.tgy,
+         f0[:, 0], f0[:, 1], conv0.to(f0.dtype)],
+        dim=-1,
+    )
 
 
 def _extract_at_origins(img, org, S):
@@ -342,16 +442,39 @@ def _extract_at_origins(img, org, S):
     return extract_windows(img, org.to(torch.int32), S)
 
 
-def _interp_template(img, pts, P):
-    """(N, P+2, P+2) interpolated template super-patches at ``pts``: the
-    (P+3) window at floor(pts - (P+1)/2) holds the fractional offset in
-    [0, 1), so bilinear interpolation is four static slices."""
-    H, W = img.shape
-    q = P + 2
+# Norms whose problems have two surfaces: they go through lk_corr_align.
+_TWO_SURFACE = ("none", "zeromean")
+
+
+def _align(img, org, S, tq: TemplateQ, f0, iters, eps, P, norm, window=None):
+    """Converged window-origin coordinates f (N, 2) of one alignment whose
+    (S, S) search windows lie at the integer-valued float origins ``org`` of
+    ``img``: a two-surface norm in one ``lk_corr_align`` launch, the
+    three-surface norms through K2 (or the already extracted ``window``),
+    ``conv2d`` and K3.  Lanes whose template fails the quality gate start
+    frozen."""
+    if norm in _TWO_SURFACE:
+        gx, gy = (tq.gx, tq.gy) if norm == "none" else _centred_filters(tq, P)
+        sc = _k1_sc(tq, f0, ~tq.good)
+        return lk_corr_align(img, org.to(torch.int32), S, gx, gy, sc, iters, eps, float(S - P - 1))
+    spatch = _extract_at_origins(img, org, S) if window is None else window
+    Cx, Cy, Ct = _surfaces_for_norm(spatch, tq, P, norm)
+    return _run_iterations(Cx, Cy, Ct, tq, f0, ~tq.good, iters, eps, S, P)
+
+
+def _template_geometry(pts, P, H, W):
+    """Origins (N, 2) of the (P+3) template windows at ``pts``, floor(pts) -
+    (P+1)//2 clipped into the image, and the offsets pts - (P+1)/2 - origin
+    clipped into [0, 1]."""
     Tq = P + 3
     torg = _clip_xy(torch.floor(pts) - (P + 1) // 2, 0.0, W - Tq, H - Tq)
-    tpatch = _extract_at_origins(img, torg, Tq)
-    a = torch.clamp(pts - (P + 1) / 2.0 - torg, 0.0, 1.0)
+    return torg, torch.clamp(pts - (P + 1) / 2.0 - torg, 0.0, 1.0)
+
+
+def _blend_template(tpatch, a, P):
+    """Bilinear interpolation of (N, P+3, P+3) windows at offsets a (N, 2)
+    as four static slices."""
+    q = P + 2
     ax = a[:, 0][:, None, None]
     ay = a[:, 1][:, None, None]
     return (
@@ -360,6 +483,56 @@ def _interp_template(img, pts, P):
         + tpatch[:, 1 : q + 1, :q] * (1 - ax) * ay
         + tpatch[:, 1 : q + 1, 1 : q + 1] * ax * ay
     )
+
+
+def extract_template_reference(img, pts, P, img_index=None):
+    """Plain version of ``extract_template``: the (P+3) windows by
+    ``extract_windows_reference``, then four bilinear slices."""
+    imgs = image_stack(img)
+    _, H, W = imgs.shape
+    torg, a = _template_geometry(pts, P, H, W)
+    return _blend_template(extract_windows_reference(imgs, torg.to(torch.int32), P + 3, img_index), a, P)
+
+
+def extract_template(
+    img: torch.Tensor, pts: torch.Tensor, P: int, img_index: torch.Tensor | None = None
+) -> torch.Tensor:
+    """(N, P+2, P+2) interpolated template super-patches at float32 points
+    ``pts`` (N, 2) [x, y] of ``img`` ((H, W), or (B, H, W) with int32
+    ``img_index`` (N,)): the (P+3) window at floor(pts - (P+1)/2) holds the
+    fractional offset in [0, 1), so bilinear interpolation is four
+    neighbouring taps."""
+    imgs = image_stack(img)
+    B, H, W = imgs.shape
+    N = pts.shape[0]
+    if pts.shape != (N, 2):
+        raise ValueError(f"pts must be (N, 2), got {tuple(pts.shape)}")
+    if not 0 < P + 3 <= min(H, W):
+        raise ValueError(f"template window {P + 3} does not fit a {H}x{W} image")
+    if img_index is None and B != 1:
+        raise ValueError("a (B, H, W) stack with B > 1 needs img_index")
+    if N == 0:  # the kernel launches nothing for it, so nothing is counted
+        return torch.empty((0, P + 2, P + 2), dtype=imgs.dtype, device=imgs.device)
+    if imgs.device.type == "cpu":
+        return extract_template_reference(imgs, pts, P, img_index)
+    if imgs.device.type != "cuda":
+        raise ValueError(f"unsupported device {imgs.device}")
+    if imgs.dtype != torch.float32 or pts.dtype != torch.float32:
+        raise TypeError("extract_template takes a float32 image and float32 points")
+    if pts.device != imgs.device:
+        raise ValueError("image and points must lie on one device")
+    if not imgs.is_contiguous():
+        raise ValueError("extract_template takes a contiguous image")
+    pts = pts.contiguous()
+    out = torch.empty((N, P + 2, P + 2), dtype=imgs.dtype, device=imgs.device)
+    fn = _cuda.kernel_function("extract_template")
+    rc = fn(
+        imgs.data_ptr(), pts.data_ptr(), image_index_ptr(img_index, N, imgs), out.data_ptr(),
+        N, B, H, W, H * W, P, torch.cuda.current_stream(imgs.device).cuda_stream,
+    )
+    _cuda.check_launch("extract_template", rc)
+    _cuda.launch_counts["extract_template"] += 1
+    return out
 
 
 def fused_stereo_supported(img_shape, win: int) -> bool:
@@ -404,19 +577,22 @@ def stereo_anchor_lr_fused(
     def _inb(p):
         return (p[:, 0] >= r) & (p[:, 0] < W - r) & (p[:, 1] >= r) & (p[:, 1] < H - r)
 
-    # Shared img0 window centred at the pre-refinement cam0 points.
+    # Search windows on img0 centred at the pre-refinement cam0 points,
+    # shared by the anchor and backward problems; extracted only for a
+    # three-surface norm (lk_corr_align reads its own windows).
     sorg0 = _clip_xy(torch.floor(pts0) - (S // 2), 0.0, W - S, H - S)
-    big0 = _extract_at_origins(img0, sorg0, S)
+    a_norm = norm if anchor_norm is None else anchor_norm
+    three = norm not in _TWO_SURFACE or (anchor_sp is not None and a_norm not in _TWO_SURFACE)
+    big0 = _extract_at_origins(img0, sorg0, S) if three else None
 
     pts0_out = pts0
     accept = None
     if anchor_sp is not None:
         A = anchor_sp.shape[0]
-        a_norm = norm if anchor_norm is None else anchor_norm
         tqa = _template_quantities(anchor_sp, P, a_norm)
-        Cxa, Cya, Cta = _surfaces_for_norm(big0[:A], tqa, P, a_norm)
         f0a = pts0[:A] - c_off - sorg0[:A]
-        fa = _run_iterations(Cxa, Cya, tqa, f0a, ~tqa.good, iters, eps, S, P, Ct=Cta)
+        fa = _align(img0, sorg0[:A], S, tqa, f0a, iters, eps, P, a_norm,
+                    window=None if big0 is None else big0[:A])
         pa = fa + c_off + sorg0[:A]
         oka = tqa.good & _inb(pa) & _inb(pts0[:A])
         corr2 = torch.sum((pa - pts0[:A]) ** 2, dim=1)
@@ -426,32 +602,31 @@ def stereo_anchor_lr_fused(
         )
 
     # Forward template at the refined positions (the carried-template path).
-    sp = _interp_template(img0, pts0_out, P)
+    sp = extract_template(img0, pts0_out, P)
     tq = _template_quantities(sp, P, norm)
 
     # Forward search: one (S+2)-window whose +-1 margins hold the backward
-    # template window at any in-range forward result.
+    # template window at any in-range forward result; the search window is
+    # its inner (S, S) part.
     guess2 = guess + (pts0_out - pts0)
     o1 = _clip_xy(torch.floor(guess2) - (S // 2) - 1, 0.0, W - Sb, H - Sb)
     big1 = _extract_at_origins(img1, o1, Sb)
-    spatch = big1[:, 1 : 1 + S, 1 : 1 + S]
     so = o1 + 1.0
-    Cx, Cy, Ct = _surfaces_for_norm(spatch, tq, P, norm)
     f0 = guess2 - c_off - so
-    f = _run_iterations(Cx, Cy, tq, f0, ~tq.good, iters, eps, S, P, Ct=Ct)
+    f = _align(img1, so, S, tq, f0, iters, eps, P, norm, window=big1[:, 1 : 1 + S, 1 : 1 + S])
     pts1 = f + c_off + so
     okf = tq.good & _inb(pts1) & _inb(pts0_out)
     res = KltResult(pts=pts1, valid=valid_in & okf)
 
     # Backward round trip: template resampled from big1 at the forward
-    # result, search on big0 from the refined cam0 position.
+    # result, search in the img0 windows at sorg0 from the refined cam0
+    # position.
     q = P + 2
     ob = torch.clamp(pts1 - (P + 1) / 2.0 - o1, 0.0, Sb - (P + 3.0))
     sp_b = _sample(_tent_weights(ob[:, 1], q, Sb), big1, _tent_weights(ob[:, 0], q, Sb))
     tqb = _template_quantities(sp_b, P, norm)
-    Cxb, Cyb, Ctb = _surfaces_for_norm(big0, tqb, P, norm)
     f0b = pts0_out - c_off - sorg0
-    fb = _run_iterations(Cxb, Cyb, tqb, f0b, ~tqb.good, iters, eps, S, P, Ct=Ctb)
+    fb = _align(img0, sorg0, S, tqb, f0b, iters, eps, P, norm, window=big0)
     rt = fb + c_off + sorg0
     okb = tqb.good & _inb(rt) & _inb(pts1)
     rt2 = torch.where(
@@ -474,17 +649,14 @@ def _track_level_corr(
     if S < P + 2 or min(H, W) < T:
         out = pts_curr0, torch.ones(pts_curr0.shape[0], dtype=torch.bool, device=pts_curr0.device)
         return out + (tmpl_sp,) if want_tmpl else out
-    sp = tmpl_sp if tmpl_sp is not None else _interp_template(img_prev, pts_prev, P)
+    sp = tmpl_sp if tmpl_sp is not None else extract_template(img_prev, pts_prev, P)
     tq = _template_quantities(sp, P, norm)
 
     sorg = _clip_xy(torch.floor(pts_curr0) - (S // 2), 0.0, W - S, H - S)
-    spatch = _extract_at_origins(img_curr, sorg, S)
-    Cx, Cy, Ct = _surfaces_for_norm(spatch, tq, P, norm)
-
     # Window-origin coordinates, carried unclipped until the first update.
     c_off = (P - 1) / 2.0
     f0 = pts_curr0 - c_off - sorg
-    f = _run_iterations(Cx, Cy, tq, f0, ~tq.good, iters, eps, S, P, Ct=Ct)
+    f = _align(img_curr, sorg, S, tq, f0, iters, eps, P, norm)
     pts = f + c_off + sorg
 
     if not final_level:

@@ -20,7 +20,7 @@ import torch
 from . import _cuda
 
 
-def _image_stack(img: torch.Tensor) -> torch.Tensor:
+def image_stack(img: torch.Tensor) -> torch.Tensor:
     if img.dim() == 2:
         return img[None]
     if img.dim() != 3:
@@ -28,11 +28,24 @@ def _image_stack(img: torch.Tensor) -> torch.Tensor:
     return img
 
 
+def image_index_ptr(img_index: torch.Tensor | None, n: int, imgs: torch.Tensor):
+    """The device pointer of a kernel's optional int32 (n,) image index
+    (None without one), after checking it; shared by the kernels that read
+    windows out of a (B, H, W) stack."""
+    if img_index is None:
+        return None
+    if img_index.dtype != torch.int32 or img_index.shape != (n,):
+        raise TypeError("img_index must be int32 of shape (N,)")
+    if not img_index.is_contiguous() or img_index.device != imgs.device:
+        raise ValueError("img_index must be contiguous and on the image's device")
+    return img_index.data_ptr()
+
+
 def extract_windows_reference(
     img: torch.Tensor, origins: torch.Tensor, S: int, img_index: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Plain version: advanced indexing of the clamped windows."""
-    imgs = _image_stack(img)
+    imgs = image_stack(img)
     B, H, W = imgs.shape
     ox = origins[:, 0].long().clamp(0, W - S)
     oy = origins[:, 1].long().clamp(0, H - S)
@@ -51,7 +64,7 @@ def extract_windows(
 ) -> torch.Tensor:
     """(N, S, S) windows ``img[b, oy:oy+S, ox:ox+S]`` for int32 origins (N, 2)
     [x, y] and, for a (B, H, W) stack, int32 image indices (N,)."""
-    imgs = _image_stack(img)
+    imgs = image_stack(img)
     B, H, W = imgs.shape
     if origins.dim() != 2 or origins.shape[1] != 2:
         raise ValueError(f"origins must be (N, 2), got {tuple(origins.shape)}")
@@ -59,6 +72,8 @@ def extract_windows(
         raise ValueError(f"window {S} does not fit a {H}x{W} image")
     if img_index is None and B != 1:
         raise ValueError("a (B, H, W) stack with B > 1 needs img_index")
+    if origins.shape[0] == 0:  # the kernel launches nothing for it, so nothing is counted
+        return torch.empty((0, S, S), dtype=imgs.dtype, device=imgs.device)
     if imgs.device.type == "cpu":
         return extract_windows_reference(imgs, origins, S, img_index)
     if imgs.device.type != "cuda":
@@ -69,17 +84,11 @@ def extract_windows(
         raise ValueError("extract_windows takes contiguous tensors")
     if origins.device != imgs.device:
         raise ValueError("image and origins must lie on one device")
-    if img_index is not None:
-        if img_index.dtype != torch.int32 or img_index.shape != (origins.shape[0],):
-            raise TypeError("img_index must be int32 of shape (N,)")
-        if not img_index.is_contiguous() or img_index.device != imgs.device:
-            raise ValueError("img_index must be contiguous and on the image's device")
     N = origins.shape[0]
     out = torch.empty((N, S, S), dtype=imgs.dtype, device=imgs.device)
     fn = _cuda.kernel_function("extract_windows")
     rc = fn(
-        imgs.data_ptr(), origins.data_ptr(),
-        None if img_index is None else img_index.data_ptr(),
+        imgs.data_ptr(), origins.data_ptr(), image_index_ptr(img_index, N, imgs),
         out.data_ptr(), N, B, H, W, S, H * W,
         torch.cuda.current_stream(imgs.device).cuda_stream,
     )

@@ -1,4 +1,4 @@
-"""The port's three hand-written CUDA kernels, their wrappers and their
+"""The port's five hand-written CUDA kernels, their wrappers and their
 plain versions.
 
 The tests marked ``cuda`` hold each kernel against its plain version on the
@@ -7,13 +7,14 @@ JAX nor the JAX package, so on the machine with the card it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 
-(the JAX parity of the plain versions is in test_torch_patch_extract.py and
-test_torch_klt_corr.py)."""
+(the JAX parity of the plain versions is in test_torch_patch_extract.py,
+test_torch_klt_corr.py and test_torch_lk_align.py)."""
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import lk_trace
+from msckf_stereo_c_torch.config import matmul_precision_scope
 from msckf_stereo_c_torch.ops import _cuda
 from msckf_stereo_c_torch.ops import klt_corr as kc
 from msckf_stereo_c_torch.ops.patch_extract import extract_windows, extract_windows_reference
@@ -51,7 +52,7 @@ def _lk_problem(seed, N, H=240, W=320, shift=(2.6, -1.9), device="cpu"):
     pts = np.stack([rng.uniform(20, W - 20, N), rng.uniform(20, H - 20, N)], 1).astype(np.float32)
     a, b = (torch.as_tensor(x, device=device) for x in (img0, img1))
     pts = torch.as_tensor(pts, device=device)
-    tq = kc._template_quantities(kc._interp_template(a, pts, P), P)
+    tq = kc._template_quantities(kc.extract_template(a, pts, P), P)
     sorg = kc._clip_xy(torch.floor(pts) - S // 2, 0.0, W - S, H - S)
     Cx, Cy = kc._corr_surfaces(kc._extract_at_origins(b, sorg, S), tq.gx, tq.gy, P)
     f0 = pts - (P - 1) / 2.0 - sorg
@@ -72,7 +73,7 @@ def _gain_problem(seed, N, norm, H=240, W=320, device="cpu"):
     pts = np.stack([rng.uniform(20, W - 20, N), rng.uniform(20, H - 20, N)], 1).astype(np.float32)
     a, b = (torch.as_tensor(x.astype(np.float32), device=device) for x in (img0, img1))
     pts = torch.as_tensor(pts, device=device)
-    tq = kc._template_quantities(kc._interp_template(a, pts, P), P, norm)
+    tq = kc._template_quantities(kc.extract_template(a, pts, P), P, norm)
     sorg = kc._clip_xy(torch.floor(pts) - S // 2, 0.0, W - S, H - S)
     Cx, Cy, Ct = kc._surfaces_for_norm(kc._extract_at_origins(b, sorg, S), tq, P, norm)
     f0 = pts - (P - 1) / 2.0 - sorg
@@ -84,6 +85,34 @@ def _gain_problem(seed, N, norm, H=240, W=320, device="cpu"):
     return sc, Cx, Cy, Ct, ~frozen
 
 
+def _align_problem(seed, N, norm="none", H=240, W=320, device="cpu"):
+    """(img1, origins, S, gx, gy, sc, live) of lk_corr_align for N features
+    of a texture tracked into a shifted copy of it under ``norm`` ('none'
+    or 'zeromean'), built as the main path builds them."""
+    img0 = _texture(seed, H, W)
+    img1 = np.roll(img0, (2, -3), (0, 1)) + 7.0
+    rng = np.random.default_rng(seed + 1)
+    pts = np.stack([rng.uniform(20, W - 20, N), rng.uniform(20, H - 20, N)], 1).astype(np.float32)
+    a, b = (torch.as_tensor(x, device=device) for x in (img0, img1))
+    pts = torch.as_tensor(pts, device=device)
+    tq = kc._template_quantities(kc.extract_template(a, pts, P), P, norm)
+    S_ = min(S, H, W)
+    sorg = kc._clip_xy(torch.floor(pts) - S_ // 2, 0.0, W - S_, H - S_)
+    gx, gy = (tq.gx, tq.gy) if norm == "none" else kc._centred_filters(tq, P)
+    frozen = ~tq.good
+    frozen[::9] = True
+    sc = kc._k1_sc(tq, pts - (P - 1) / 2.0 - sorg, frozen)
+    return b, sorg.to(torch.int32), S_, gx, gy, sc, ~frozen
+
+
+def _edge_points(H, W, n, seed, device="cpu"):
+    """n points across an H x W image, the first six at and past its edges."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(0, W - 1, n), rng.uniform(0, H - 1, n)], 1)
+    pts[:6] = [[0, 0], [W - 1, H - 1], [-3.2, 5.5], [W + 2.7, H / 2], [0.4, H - 0.6], [W - 1.5, 0.25]]
+    return torch.as_tensor(pts.astype(np.float32), device=device)
+
+
 def test_four_taps_give_the_plain_loop():
     """The tent weights are non-zero only on the 2x2 cells around f, and a
     frozen lane never moves: the kernel's per-lane four-tap loop gives the
@@ -91,7 +120,7 @@ def test_four_taps_give_the_plain_loop():
     (a lane may freeze one sub-eps step apart)."""
     sc, Cx, Cy, live = _lk_problem(0, 64)
     want = kc.lk_corr_iterate(sc, Cx, Cy, ITERS, EPS, HI).numpy()
-    got, _, _ = lk_trace(sc.numpy(), (Cx.numpy(), Cy.numpy()), ITERS, EPS, HI)
+    got, _, _, _ = lk_trace(sc.numpy(), (Cx.numpy(), Cy.numpy()), ITERS, EPS, HI)
     assert live.sum() > 40
     np.testing.assert_allclose(got[live.numpy()], want[live.numpy()], rtol=0, atol=2 * EPS)
     np.testing.assert_array_equal(want[~live.numpy()], sc[~live, 5:7].numpy())
@@ -103,7 +132,7 @@ def test_k1_trace_counts_the_sectors_the_steps_read():
     and a lane that steps reads at least its two rows' sectors: far less
     than the whole surfaces."""
     sc, Cx, Cy, live = _lk_problem(2, 40)
-    _, steps, sectors = lk_trace(sc.numpy(), (Cx.numpy(), Cy.numpy()), ITERS, EPS, HI)
+    _, steps, sectors, _ = lk_trace(sc.numpy(), (Cx.numpy(), Cy.numpy()), ITERS, EPS, HI)
     assert (steps[~live.numpy()] == 0).all() and (steps[live.numpy()] > 0).all()
     assert 2 * int(live.sum()) <= sectors <= 4 * int(steps.sum())
     assert sectors * 32 < 0.25 * Cx.numel() * 4
@@ -116,7 +145,7 @@ def test_four_taps_give_the_plain_gain_loop(norm):
     frozen lane keeps its start point."""
     sc, Cx, Cy, Ct, live = _gain_problem(4, 64, norm)
     want = kc.lk_corr_iterate_gain(sc, Cx, Cy, Ct, ITERS, EPS, HI).numpy()
-    got, steps, sectors = lk_trace(sc.numpy(), (Cx.numpy(), Cy.numpy(), Ct.numpy()), ITERS, EPS, HI)
+    got, steps, sectors, _ = lk_trace(sc.numpy(), (Cx.numpy(), Cy.numpy(), Ct.numpy()), ITERS, EPS, HI)
     assert live.sum() > 40
     np.testing.assert_allclose(got[live.numpy()], want[live.numpy()], rtol=0, atol=2 * EPS)
     np.testing.assert_array_equal(want[~live.numpy()], sc[~live, 9:11].numpy())
@@ -239,6 +268,73 @@ def test_lk_corr_iterate_gain_kernel_matches_plain(cuda_device, N, norm):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["none", "zeromean"])
+@pytest.mark.parametrize("N,H,W", [(48, 480, 752), (96, 480, 752), (144, 480, 752), (48, 60, 94)])
+def test_lk_corr_align_kernel_matches_plain(cuda_device, N, H, W, norm):
+    """Surfaces within 1e-5 x max|C| of the plain version's conv2d (full
+    f32, as the main path runs it); valid lanes within 2 * eps; frozen
+    lanes keep their start point exactly.  W = 94 takes the 4-byte window
+    copies, the others the 16-byte ones."""
+    img, org, S_, gx, gy, sc, live = _align_problem(N, N, norm, H, W, device=cuda_device)
+    K = S_ - P + 1
+    surf = torch.empty((N, 2, K, K), device=cuda_device)
+    surf_ref = torch.empty_like(surf)
+    args = (img, org, S_, gx, gy, sc, ITERS, EPS, float(K - 2))
+    before = _cuda.launch_counts["lk_corr_align"]
+    got = kc.lk_corr_align(*args, surfaces_out=surf)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["lk_corr_align"] == before + 1
+    with matmul_precision_scope("tensorfloat32"):
+        want = kc.lk_corr_align_reference(*args, surfaces_out=surf_ref)
+    assert float((surf - surf_ref).abs().max()) <= 1e-5 * float(surf_ref.abs().max())
+    assert torch.isfinite(got).all()
+    assert float((got - want)[live].abs().max()) <= 2 * EPS
+    assert torch.equal(got[~live], sc[~live, 5:7])
+    # Without the surfaces output a frozen lane skips its window: same result.
+    assert torch.equal(kc.lk_corr_align(*args), got)
+
+
+@pytest.mark.cuda
+def test_lk_corr_align_kernel_image_index(cuda_device):
+    """A (2, H, W) stack with a per-window image index gives each image's
+    own result."""
+    a = _align_problem(5, 40, H=240, W=376, device=cuda_device)
+    b = _align_problem(6, 40, H=240, W=376, device=cuda_device)
+    imgs = torch.stack([a[0], b[0]])
+    index = torch.tensor([0] * 40 + [1] * 40, dtype=torch.int32, device=cuda_device)
+    org, gx, gy, sc = (torch.cat([a[i], b[i]]) for i in (1, 3, 4, 5))
+    hi = float(a[2] - P - 1)
+    got = kc.lk_corr_align(imgs, org, a[2], gx, gy, sc, ITERS, EPS, hi, img_index=index)
+    one = kc.lk_corr_align(a[0], *a[1:6], ITERS, EPS, hi)
+    two = kc.lk_corr_align(b[0], *b[1:6], ITERS, EPS, hi)
+    assert torch.equal(got, torch.cat([one, two]))
+
+
+@pytest.mark.cuda
+def test_extract_template_kernel_matches_plain(cuda_device):
+    """Bit-exact on the four pyramid level sizes of the main path, with
+    points at and past the image edges (origins and offsets clamped)."""
+    rng = np.random.default_rng(4)
+    for H, W in [(480, 752), (240, 376), (120, 188), (60, 94)]:
+        img = torch.as_tensor(rng.uniform(0, 255, (H, W)).astype(np.float32), device=cuda_device)
+        pts = _edge_points(H, W, 144, H, device=cuda_device)
+        before = _cuda.launch_counts["extract_template"]
+        got = kc.extract_template(img, pts, P)
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts["extract_template"] == before + 1
+        assert torch.equal(got, kc.extract_template_reference(img, pts, P))
+
+
+@pytest.mark.cuda
+def test_extract_template_kernel_image_index(cuda_device):
+    imgs = torch.rand((3, 120, 188), device=cuda_device) * 255
+    pts = _edge_points(120, 188, 30, 1, device=cuda_device)
+    index = torch.tensor([-1, 5] + [0, 1, 2] * 9 + [2], dtype=torch.int32, device=cuda_device)
+    got = kc.extract_template(imgs, pts, P, index)
+    assert torch.equal(got, kc.extract_template_reference(imgs, pts, P, index))
+
+
+@pytest.mark.cuda
 def test_cuda_tensor_never_takes_the_plain_path(cuda_device):
     """A CUDA tensor the kernel does not take raises; it is not handed to
     the plain version."""
@@ -251,3 +347,10 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda_device):
     with pytest.raises(TypeError):
         extract_windows(torch.zeros((60, 94), device=cuda_device, dtype=torch.float64),
                         torch.zeros((3, 2), dtype=torch.int32, device=cuda_device), 18)
+    img64 = torch.zeros((60, 94), device=cuda_device, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        kc.extract_template(img64, torch.zeros((3, 2), device=cuda_device, dtype=torch.float64), P)
+    g = torch.zeros((3, P, P), device=cuda_device, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        kc.lk_corr_align(img64, torch.zeros((3, 2), dtype=torch.int32, device=cuda_device), S, g, g,
+                         torch.zeros((3, 8), device=cuda_device, dtype=torch.float64), 30, 0.01, HI)

@@ -95,7 +95,7 @@ def test_run_iterations(jax_mode):
     )
     tq_t = tkc._template_quantities(_t(sp), P)
     np.testing.assert_array_equal(tq_t.good.numpy(), np.asarray(tq.good))
-    got = tkc._run_iterations(_t(Cx), _t(Cy), tq_t, _t(f0), _t(frozen), ITERS, EPS, S, P)
+    got = tkc.lk_corr_iterate(tkc._k1_sc(tq_t, _t(f0), _t(frozen)), _t(Cx), _t(Cy), ITERS, EPS, float(S - P - 1))
     assert (~frozen).sum() > 25
     assert _max_err(got.numpy(), want, ~frozen) <= PT_TOL
     # Frozen lanes return their start point on both sides.
