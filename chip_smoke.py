@@ -10,17 +10,18 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ``sm_90a`` (into ``build/torch_kernels/``), all sources at once;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
    card, at the shapes the main paths give it, with inputs cut from real
-   frames (K2, ``extract_template``, the loop-only K1 and ``lk_corr_align``
-   from the bench scene; K3 from the stress scene, with 'gain' and with
-   'offset' surfaces); kernel, device, plain and library-call times (CUDA
-   events, torch.profiler) beside the least time the card could take, and
-   for ``lk_corr_align`` and ``extract_template`` the kernel chains they
-   replace, timed in the same run;
+   frames (K2, ``extract_template``, ``resample_template``, the loop-only K1
+   and ``lk_corr_align`` from the bench scene; ``lk_corr_align_gain`` and
+   the loop-only K3 from the stress scene, with 'gain' and with 'offset'
+   filters); kernel, device, plain and library-call times (CUDA events,
+   torch.profiler) beside the least time the card could take, and for the
+   redesigned kernels the kernel chains they replace, timed in the same
+   run;
 4. main path: ``run_vio_sequence`` over the bench scene (752x480 stereo,
    the configuration ``bench.py`` runs, B=1) with the kernel launch counts
    zeroed just before and read just after (7 ``lk_corr_align``, 4
-   ``extract_template``, 1 K2, 0 K1, 0 K3 per frame); frames/s, ATE,
-   tracks, host syncs;
+   ``extract_template``, 1 ``resample_template`` and none of the others per
+   frame); frames/s, ATE, tracks, host syncs;
 5. mode sweep: each ``klt_norm`` mode over 20 bench frames, with the exact
    launch split per frame it must give (``MODE_SPLIT``);
 6. profile: the last bench frames again, from the state the frames before
@@ -30,8 +31,9 @@ Phases, each of which fails the run (exit code 1) if it fails:
 7. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
    (721 stereo frames rendered on the card with every stress channel on,
    ``klt_norm='gain'``), launch counts zeroed just before and read just
-   after (7 K3, 6 K2, 4 ``extract_template``, 0 ``lk_corr_align``, 0 K1
-   per frame), the gate's ATE and track bars,
+   after (7 ``lk_corr_align_gain``, 4 ``extract_template``, 1
+   ``resample_template`` and none of the others per frame), the gate's ATE
+   and track bars,
    frames/s and render time; then the same run with each stage timed and
    its host syncs counted;
 8. the card's name and power limit, the ``{"kernels": [...]}`` line, then
@@ -69,16 +71,18 @@ FRAMES = 60  # main-path frames, 752x480 stereo (bench.py's scene)
 N_TAIL = 20  # last frames of the scene run again by the profile phase
 SWEEP_FRAMES = 20  # bench frames per photometric mode in the mode sweep
 STRESS_SECONDS = 36.0  # the stress gate's short run (721 stereo frames)
-# lk_corr_align, K3 and K2 launches per frame for each klt_norm mode (every
-# mode: 4 extract_template, 0 K1).  A two-surface problem ('none',
-# 'zeromean') is one lk_corr_align launch; a three-surface one is K2 (its
-# search window), conv2d and K3.  The fused call extracts its forward
-# window block (big1) with K2 in every mode, and the img0 windows (big0)
-# only where a three-surface anchor or backward problem needs them.
+# lk_corr_align and lk_corr_align_gain launches per frame for each
+# klt_norm mode (every mode: 4 extract_template, 1 resample_template, no K2,
+# K1 or K3).  A two-surface problem ('none', 'zeromean') is one
+# lk_corr_align launch, a three-surface one ('offset', 'gain') one
+# lk_corr_align_gain launch; 'anchor_gain' is three-surface on the anchor
+# problem only.
 MODE_SPLIT = {
-    "zeromean": (7, 0, 1), "offset": (0, 7, 6), "gain": (0, 7, 6), "mixed": (0, 7, 6),
-    "anchor_gain": (6, 1, 2),
+    "zeromean": (7, 0), "offset": (0, 7), "gain": (0, 7), "mixed": (0, 7), "anchor_gain": (6, 1),
 }
+# The launches per frame every path and mode shares.
+COMMON_LAUNCHES = dict(extract_template=4, resample_template=1, extract_windows=0, lk_corr_iterate=0,
+                       lk_corr_iterate_gain=0)
 
 KERNEL_SOURCES = {
     "lk_corr_iterate": (
@@ -99,6 +103,14 @@ KERNEL_SOURCES = {
     ),
     "extract_template": (
         "msckf_stereo_c_torch/csrc/extract_template.cu",
+        "msckf_stereo_c_tpu/ops/patch_extract.py:28",
+    ),
+    "lk_corr_align_gain": (
+        "msckf_stereo_c_torch/csrc/lk_corr_align_gain.cu",
+        "msckf_stereo_c_tpu/ops/klt_corr.py:144",
+    ),
+    "resample_template": (
+        "msckf_stereo_c_torch/csrc/resample_template.cu",
         "msckf_stereo_c_tpu/ops/patch_extract.py:28",
     ),
 }
@@ -365,8 +377,9 @@ def phase_kernels(img0, img1, fcfg):
     # corners of one frame tracked into the next.
     corners = _best_corners(pyr_a[0], fcfg, 144)
     rows += template_rows(pyr_a, corners, fcfg.patch_size)
+    rows += resample_rows(pyr_a[0], pyr_b[0], corners, fcfg)
     rows += lk_rows("K1", pyr_a[0], pyr_b[0], fcfg, "none")
-    return rows + align_rows(pyr_a, pyr_b, corners, fcfg)
+    return rows + align_rows(pyr_a, pyr_b, corners, fcfg, "none")
 
 
 def _best_corners(img, fcfg, n):
@@ -390,6 +403,7 @@ def template_rows(pyr, corners, P):
     import torch.nn.functional as F
 
     from msckf_stereo_c_torch.ops import klt_corr as kc
+    from msckf_stereo_c_torch.ops.patch_extract import extract_windows
 
     rows = []
     q, Tq = P + 2, P + 3
@@ -407,7 +421,7 @@ def template_rows(pyr, corners, P):
 
         def before():
             torg, a = kc._template_geometry(pts, P, H, W)
-            return kc._blend_template(kc._extract_at_origins(img, torg, Tq), a, P)
+            return kc._blend_template(extract_windows(img, torg.to(torch.int32), Tq), a, P)
 
         check(torch.equal(before(), want), f"the K2 + blend template pair differs at level {lvl}")
         c = torch.arange(q, device=img.device, dtype=torch.float32)
@@ -432,15 +446,17 @@ def template_rows(pyr, corners, P):
     return rows
 
 
-def align_rows(pyr_a, pyr_b, corners, fcfg):
-    """``lk_corr_align`` against its plain version (the composition it
-    replaces) on the bench features: at level 0 for N = 48 / 96 / 144, timed
-    beside the chain it replaces (K2 + weight stack + ``conv2d`` + K1) and
-    ``conv2d`` alone; at levels 1-3 (N=48, the corners scaled as the coarse
-    walk scales them; level 3's 94-pixel rows take the 4-byte copies) as a
-    check.  Surfaces within 1e-5 x max|C| of ``conv2d``'s; final points
-    within K1_TOL; valid masks equal except lanes whose point lies within
-    K1_TOL of the in-bounds border."""
+def align_rows(pyr_a, pyr_b, corners, fcfg, norm):
+    """``lk_corr_align`` (norm 'none', bench features) or
+    ``lk_corr_align_gain`` ('gain', 'offset', stress features) against its
+    plain version (the composition it replaces): at level 0 for N = 48 / 96
+    / 144, timed beside the chain it replaces (K2 + weight stack +
+    ``conv2d`` + the loop-only K1 or K3) and ``conv2d`` alone; at levels 1-3
+    (N=48, the corners scaled as the coarse walk scales them; level 3's
+    94-pixel rows take the 4-byte copies) as a check.  Each surface within
+    1e-5 x its own max|C| of ``conv2d``'s; final points within K1_TOL; valid
+    masks equal except lanes whose point lies within K1_TOL of the
+    in-bounds border; frozen lanes unmoved."""
     import torch
     import torch.nn.functional as F
 
@@ -451,6 +467,14 @@ def align_rows(pyr_a, pyr_b, corners, fcfg):
     P, iters, eps = fcfg.patch_size, fcfg.max_iteration, fcfg.track_precision
     c_off = (P - 1) / 2.0
     r = P // 2 + 1
+    if norm in ("none", "zeromean"):
+        name, tag, fn, ref, loop, ops_per_step, make_sc, f0_col = (
+            "lk_corr_align", "align", kc.lk_corr_align, kc.lk_corr_align_reference, kc.lk_corr_iterate,
+            K1_OPS_PER_STEP, kc._k1_sc, 5)
+    else:
+        name, tag, fn, ref, loop, ops_per_step, make_sc, f0_col = (
+            "lk_corr_align_gain", f"align_gain {norm}", kc.lk_corr_align_gain, kc.lk_corr_align_gain_reference,
+            kc.lk_corr_iterate_gain, K3_OPS_PER_STEP, kc._k3_sc, 9)
     rows = []
     for lvl, N in ((0, 48), (0, 96), (0, 144), (1, 48), (2, 48), (3, 48)):
         img_a, img_b = pyr_a[lvl], pyr_b[lvl]
@@ -459,26 +483,30 @@ def align_rows(pyr_a, pyr_b, corners, fcfg):
         K, hi = S - P + 1, float(S - P - 1)
         pts = (corners[:N] / 2.0**lvl).contiguous()
         with matmul_precision_scope(fcfg.matmul_precision):
-            tq = kc._template_quantities(kc.extract_template(img_a, pts, P), P, "none")
+            tq = kc._template_quantities(kc.extract_template(img_a, pts, P), P, norm)
         sorg = kc._clip_xy(torch.floor(pts) - S // 2, 0.0, W - S, H - S)
         org = sorg.to(torch.int32)
         f0 = pts - c_off - sorg
-        sc = kc._k1_sc(tq, f0, ~tq.good)
-        args = (img_b, org, S, tq.gx, tq.gy, sc, iters, eps, hi)
-        surf = torch.empty((N, 2, K, K), device=img_b.device)
+        filters = kc._filters_for_norm(tq, P, norm)
+        nf = len(filters)
+        sc = make_sc(tq, f0, ~tq.good)
+        args = (img_b, org, S, *filters, sc, iters, eps, hi)
+        surf = torch.empty((N, nf, K, K), device=img_b.device)
         surf_ref = torch.empty_like(surf)
-        got = kc.lk_corr_align(*args, surfaces_out=surf)
+        got = fn(*args, surfaces_out=surf)
         with matmul_precision_scope(fcfg.matmul_precision):
-            want = kc.lk_corr_align_reference(*args, surfaces_out=surf_ref)
+            want = ref(*args, surfaces_out=surf_ref)
         # The variant the main path launches (no surfaces out: frozen lanes
         # return before any copy) gives the same points, so every check on
         # ``got`` below holds for it.
-        check(torch.equal(kc.lk_corr_align(*args), got),
-              f"lk_corr_align without surfaces_out differs from the launch with it at level {lvl}, N={N}")
+        check(torch.equal(fn(*args), got),
+              f"{name} without surfaces_out differs from the launch with it at level {lvl}, N={N} ({norm})")
         torch.cuda.synchronize()
-        cmax = float(surf_ref.abs().max())
-        serr = float((surf - surf_ref).abs().max())
-        check(serr <= 1e-5 * cmax, f"lk_corr_align surfaces differ by {serr} (> 1e-5 x {cmax}) at level {lvl}, N={N}")
+        cmax = [float(surf_ref[:, i].abs().max()) for i in range(nf)]
+        serr = [float((surf[:, i] - surf_ref[:, i]).abs().max()) for i in range(nf)]
+        for i in range(nf):
+            check(serr[i] <= 1e-5 * cmax[i], f"{name} surface {i} differs by {serr[i]} (> 1e-5 x {cmax[i]}) "
+                                             f"at level {lvl}, N={N} ({norm})")
 
         def pts_of(f):
             return f + c_off + sorg
@@ -491,60 +519,140 @@ def align_rows(pyr_a, pyr_b, corners, fcfg):
         near = border.abs().min(-1).values < K1_TOL
         m_want = ok_mask(pw)
         check(torch.equal(ok_mask(pts_of(got))[~near], m_want[~near]),
-              f"lk_corr_align valid mask differs at level {lvl}, N={N}")
-        check(bool(torch.isfinite(got).all()), f"lk_corr_align gave non-finite output at level {lvl}, N={N}")
-        check(torch.equal(got[~tq.good], f0[~tq.good]), f"lk_corr_align moved a frozen lane at level {lvl}, N={N}")
+              f"{name} valid mask differs at level {lvl}, N={N} ({norm})")
+        check(bool(torch.isfinite(got).all()), f"{name} gave non-finite output at level {lvl}, N={N} ({norm})")
+        check(torch.equal(got[~tq.good], f0[~tq.good]), f"{name} moved a frozen lane at level {lvl}, N={N} ({norm})")
         err = float((got - want)[m_want].abs().max()) if bool(m_want.any()) else 0.0
-        check(err <= K1_TOL, f"lk_corr_align differs by {err} px (> {K1_TOL}) at level {lvl}, N={N}")
-        row = dict(name="lk_corr_align", level=lvl, W=W, H=H, N=N, S=S, K=K, valid=int(m_want.sum()),
+        check(err <= K1_TOL, f"{name} differs by {err} px (> {K1_TOL}) at level {lvl}, N={N} ({norm})")
+        row = dict(name=name, norm=norm, level=lvl, W=W, H=H, N=N, S=S, K=K, valid=int(m_want.sum()),
                    near_border=int(near.sum()), max_abs_err=err, surface_err=serr, surface_max=cmax)
         rows.append(row)
-        msg = (f"[align] level {lvl} {W}x{H} N={N}: {int(m_want.sum())} valid lanes, masks equal "
+        msg = (f"[{tag}] level {lvl} {W}x{H} N={N}: {int(m_want.sum())} valid lanes, masks equal "
                f"({int(near.sum())} lanes within {K1_TOL} px of the border exempt), max |df| {err:.2e} px "
-               f"(tol {K1_TOL}), surfaces within {serr:.3g} of max |C| {cmax:.4g}")
+               f"(tol {K1_TOL}), surfaces within "
+               + ", ".join(f"{e:.3g} of max |C| {m:.4g}" for e, m in zip(serr, cmax)))
         if lvl:
             print(msg)
             continue
 
-        _, steps, _, cells = lk_trace(sc.cpu().numpy(), (surf_ref[:, 0].cpu().numpy(), surf_ref[:, 1].cpu().numpy()),
+        _, steps, _, cells = lk_trace(sc.cpu().numpy(), tuple(surf_ref[:, i].cpu().numpy() for i in range(nf)),
                                       iters, eps, hi)
         n_step = int((steps > 0).sum())
-        # sc read, f written, each stepping lane's two filters, and the image
+        # sc read, f written, each stepping lane's filters, and the image
         # pixels under the (P, P) footprints of the surface cells the steps
         # touch: the result depends on nothing else.
         n_bytes = (footprint_sectors(org.cpu().numpy(), cells, S, P, H, W) * SECTOR_BYTES
-                   + 2 * n_step * P * P * 4 + N * 8 * 4 + N * 2 * 4)
-        n_ops = int(steps.sum()) * K1_OPS_PER_STEP + cells.size * 2 * P * P * 2
+                   + nf * n_step * P * P * 4 + N * 4 * nf * 4 + N * 2 * 4)
+        n_ops = int(steps.sum()) * ops_per_step + cells.size * nf * P * P * 2
         b, by = bound_ms(n_bytes, n_ops)
-        full_ms = 2 * N * K * K * P * P * 2 / F32_OPS_PER_S * 1e3
+        full_ms = nf * N * K * K * P * P * 2 / F32_OPS_PER_S * 1e3
         spatch = extract_windows_reference(img_b, org, S)
-        weight = torch.stack([tq.gx, tq.gy], 1).reshape(2 * N, 1, P, P)
+        weight = torch.stack(filters, 1).reshape(nf * N, 1, P, P)
 
         def chain():
-            Cx, Cy = kc._corr_surfaces(extract_windows(img_b, org, S), tq.gx, tq.gy, P)
-            return kc.lk_corr_iterate(sc, Cx, Cy, iters, eps, hi)
+            surfaces = kc._corr_surfaces(extract_windows(img_b, org, S), *filters[:2], P, extra=filters[2:])
+            return loop(sc, *surfaces, iters, eps, hi)
 
         with matmul_precision_scope(fcfg.matmul_precision):
-            ms = cuda_ms(lambda: kc.lk_corr_align(*args), reps=200)
+            ms = cuda_ms(lambda: fn(*args), reps=200)
             before_ms = cuda_ms(chain, reps=200)
             lib = cuda_ms(lambda: F.conv2d(spatch[None], weight, groups=N), reps=200)
-            plain = cuda_ms(lambda: kc.lk_corr_align_reference(*args), reps=10)
-            dev_ms = device_ms(lambda: kc.lk_corr_align(*args), "lk_corr_align_kernel")
+            plain = cuda_ms(lambda: ref(*args), reps=10)
+            dev_ms = device_ms(lambda: fn(*args), f"{name}_kernel")
             # The same launch with no LK step: window copies and surfaces only.
-            dev0_ms = device_ms(lambda: kc.lk_corr_align(*args[:6], 0, eps, hi), "lk_corr_align_kernel")
+            dev0_ms = device_ms(lambda: fn(*args[:-3], 0, eps, hi), f"{name}_kernel")
             before_dev = device_ms_per_call(chain)
         row.update(lane_steps=int(steps.sum()), max_steps=int(steps.max()), stepping_lanes=n_step,
                    touched_cells=int(cells.size), bound_bytes=n_bytes, bound_ops=n_ops, ms=ms, device_ms=dev_ms,
                    device_ms_no_steps=dev0_ms, plain_ms=plain, library_ms=lib, before_ms=before_ms,
                    before_device_ms=before_dev, bound_ms=b, bound_by=by, full_surface_ms=full_ms)
         print(msg)
-        print(f"[align]   {int(steps.sum())} lane steps (max {int(steps.max())}) over {n_step} stepping lanes, "
+        loop_name = "K1" if nf == 2 else "K3"
+        print(f"[{tag}]   {int(steps.sum())} lane steps (max {int(steps.max())}) over {n_step} stepping lanes, "
               f"{int(cells.size)} cells touched; per call {ms:.4f} ms (device {_fmt(dev_ms)}, "
-              f"{_fmt(dev0_ms)} with no step); before "
-              f"(K2 + conv2d + K1) {before_ms:.4f} ms (device {_fmt(before_dev)}); conv2d alone {lib:.4f} ms; "
-              f"plain {plain:.4f} ms; bound {b:.7f} ms ({by}: {n_bytes} B, {n_ops} flops); whole surfaces "
-              f"{full_ms:.6f} ms")
+              f"{_fmt(dev0_ms)} with no step); before (K2 + conv2d + {loop_name}) {before_ms:.4f} ms (device "
+              f"{_fmt(before_dev)}); conv2d alone {lib:.4f} ms; plain {plain:.4f} ms; bound {b:.7f} ms "
+              f"({by}: {n_bytes} B, {n_ops} flops); whole surfaces {full_ms:.6f} ms")
     return rows
+
+
+def resample_rows(img_a, img_b, corners, fcfg):
+    """``resample_template`` against its plain version at the forward
+    results of the bench features (level 0: 138 corners tracked as the
+    fused call's forward problem tracks them, plus six lanes whose offsets
+    clamp at both ends of [0, Sb - (P+3)], sit on its ends or on integers,
+    or lie just below an integer).  Within 2e-6 x max|sp_b| (the
+    plain einsum's GEMM association is not specified) and the templates'
+    quality gate equal; per-call, device, plain, library (``grid_sample`` at
+    the same positions) and bound times beside the chain it replaces (K2's
+    (Sb, Sb) block, the tent weights and the ``einsum``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from msckf_stereo_c_torch.config import matmul_precision_scope
+    from msckf_stereo_c_torch.ops import klt_corr as kc
+    from msckf_stereo_c_torch.ops.patch_extract import extract_windows
+
+    P, iters, eps = fcfg.patch_size, fcfg.max_iteration, fcfg.track_precision
+    H, W = img_a.shape
+    S = min(P + 2 * kc._SEARCH_RADIUS + 2, H, W)
+    Sb, q, Tq = S + 2, P + 2, P + 3
+    c_off, half, top = (P - 1) / 2.0, (P + 1) / 2.0, float(Sb - Tq)
+    pts0 = corners[:138].contiguous()
+    with matmul_precision_scope(fcfg.matmul_precision):
+        tq = kc._template_quantities(kc.extract_template(img_a, pts0, P), P, "none")
+    o1 = kc._clip_xy(torch.floor(pts0) - S // 2 - 1, 0.0, W - Sb, H - Sb)
+    so = o1 + 1.0
+    f = kc._align(img_b, so, S, tq, pts0 - c_off - so, iters, eps, P, "none")
+    edge = torch.tensor([[-2.5, -0.3], [top + 1.7, top + 0.2], [0.0, top], [3.0, 5.0], [4.75, 0.5],
+                         [top - 0.25, 1.0 - 2.0**-14]], device=img_a.device)
+    pts = torch.cat([f + c_off + so, o1[:6] + half + edge]).contiguous()
+    o1 = torch.cat([o1, o1[:6]])
+    org = o1.to(torch.int32)
+    N = pts.shape[0]
+    got = kc.resample_template(img_b, pts, org, Sb, P)
+    with matmul_precision_scope(fcfg.matmul_precision):
+        want = kc.resample_template_reference(img_b, pts, org, Sb, P)
+        good_got = kc._template_quantities(got, P, "none").good
+        good_want = kc._template_quantities(want, P, "none").good
+    torch.cuda.synchronize()
+    vmax = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), "resample_template gave non-finite output")
+    check(err <= 2e-6 * vmax, f"resample_template differs by {err} (> 2e-6 x {vmax})")
+    check(torch.equal(good_got, good_want), "resample_template templates pass another quality gate")
+    # The einsum's output layout: reductions over the templates downstream
+    # then sum in the same order.
+    check(got.stride() == want.stride(), f"resample_template layout {got.stride()}, plain {want.stride()}")
+
+    ob = torch.clamp(pts - half - o1, 0.0, top)
+
+    def before():
+        obb = torch.clamp(pts - half - o1, 0.0, top)
+        return kc._sample(kc._tent_weights(obb[:, 1], q, Sb), extract_windows(img_b, org, Sb),
+                          kc._tent_weights(obb[:, 0], q, Sb))
+
+    c = torch.arange(q, device=img_b.device, dtype=torch.float32)
+    x = (o1[:, 0, None, None] + ob[:, 0, None, None] + c[None, None, :]).expand(N, q, q)
+    y = (o1[:, 1, None, None] + ob[:, 1, None, None] + c[None, :, None]).expand(N, q, q)
+    grid = torch.stack([2.0 * x / (W - 1) - 1.0, 2.0 * y / (H - 1) - 1.0], -1).reshape(1, N * q, q, 2)
+    with matmul_precision_scope(fcfg.matmul_precision):
+        ms = cuda_ms(lambda: kc.resample_template(img_b, pts, org, Sb, P), reps=200)
+        plain = cuda_ms(lambda: kc.resample_template_reference(img_b, pts, org, Sb, P), reps=50)
+        lib = cuda_ms(lambda: F.grid_sample(img_b[None, None], grid, mode="bilinear", align_corners=True), reps=200)
+        before_ms = cuda_ms(before, reps=200)
+        dev_ms = device_ms(lambda: kc.resample_template(img_b, pts, org, Sb, P), "resample_template_kernel")
+        before_dev = device_ms_per_call(before)
+    wins = (o1 + torch.floor(ob)).long().cpu().numpy()
+    n_bytes = window_sectors(wins, Tq, H, W) * SECTOR_BYTES + N * q * q * 4 + N * 4 * 4
+    b, by = bound_ms(n_bytes, 0)
+    print(f"[resample] level 0 {W}x{H} N={N}: within {err:.3g} of max {vmax:.4g} (tol 2e-6 x max), quality gate "
+          f"equal ({int(good_want.sum())} good); per call {ms:.4f} ms (device {_fmt(dev_ms)}), before (K2 block + "
+          f"tent weights + einsum) {before_ms:.4f} ms (device {_fmt(before_dev)}), plain {plain:.4f} ms, "
+          f"grid_sample {lib:.4f} ms, bound {b:.6f} ms ({by}, {n_bytes} B)")
+    return [dict(name="resample_template", level=0, H=H, W=W, N=N, Sb=Sb, max_abs_err=err, max_abs=vmax, ms=ms,
+                 device_ms=dev_ms, plain_ms=plain, library_ms=lib, before_ms=before_ms,
+                 before_device_ms=before_dev, bound_bytes=n_bytes, bound_ms=b, bound_by=by)]
 
 
 def phase_main_path(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
@@ -599,7 +707,7 @@ def phase_main_path(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
     print(f"[main] launches: {counts}")
     check(ate < 0.13, f"ATE {ate} m is above the 0.13 m pass bar")
     check(np.min(tracks[1:]) >= 10, "the tracker lost the scene")
-    want = dict(lk_corr_align=7, extract_template=4, extract_windows=1, lk_corr_iterate=0, lk_corr_iterate_gain=0)
+    want = dict(COMMON_LAUNCHES, lk_corr_align=7, lk_corr_align_gain=0)
     check(counts == {k: v * T for k, v in want.items()},
           f"main path launches {counts}, expected per frame {want}")
     return out
@@ -626,10 +734,11 @@ def count_syncs(fn):
 
 
 def phase_k3(fcfg):
-    """K3 within K1_TOL of its plain version on inputs cut from two frames
-    of the stress scene rendered on the card (exposure drift, vignette,
-    blur and noise on): FAST corners of one frame tracked into the next at
-    full resolution, once with 'gain' and once with 'offset' surfaces."""
+    """``lk_corr_align_gain`` and the loop-only K3 within K1_TOL of their
+    plain versions on inputs cut from two frames of the stress scene
+    rendered on the card (exposure drift, vignette, blur and noise on):
+    FAST corners of one frame tracked into the next, once with 'gain' and
+    once with 'offset' filters."""
     import numpy as np
     import torch
 
@@ -644,8 +753,13 @@ def phase_k3(fcfg):
     k = 60  # 3 s in: the drift is on, the texture-poor windows are not
     img, _ = TorchRenderer(lms, r_wall=7.0, z_cap=3.5, device=dev).render_sequence(
         traj, idx[k:k + 2], make_stress_events(traj, idx).slice(k, k + 2))
-    img_a, img_b = pyramids_for(img[0], fcfg)[0], pyramids_for(img[1], fcfg)[0]
-    return lk_rows("K3", img_a, img_b, fcfg, "gain") + lk_rows("K3", img_a, img_b, fcfg, "offset")
+    pyr_a, pyr_b = pyramids_for(img[0], fcfg), pyramids_for(img[1], fcfg)
+    corners = _best_corners(pyr_a[0], fcfg, 144)
+    rows = []
+    for norm in ("gain", "offset"):
+        rows += align_rows(pyr_a, pyr_b, corners, fcfg, norm)
+        rows += lk_rows("K3", pyr_a[0], pyr_b[0], fcfg, norm)
+    return rows
 
 
 def lk_rows(tag, img_a, img_b, fcfg, norm):
@@ -657,6 +771,7 @@ def lk_rows(tag, img_a, img_b, fcfg, norm):
 
     from msckf_stereo_c_torch.config import matmul_precision_scope
     from msckf_stereo_c_torch.ops import klt_corr as kc
+    from msckf_stereo_c_torch.ops.patch_extract import extract_windows
 
     P, iters, eps = fcfg.patch_size, fcfg.max_iteration, fcfg.track_precision
     H, W = img_a.shape
@@ -671,22 +786,18 @@ def lk_rows(tag, img_a, img_b, fcfg, norm):
         with matmul_precision_scope(fcfg.matmul_precision):
             tq = kc._template_quantities(kc.extract_template(img_a, pts, P), P, norm)
             sorg = kc._clip_xy(torch.floor(pts) - S // 2, 0.0, W - S, H - S)
-            Cx, Cy, Ct = kc._surfaces_for_norm(kc._extract_at_origins(img_b, sorg, S), tq, P, norm)
+            Cx, Cy, Ct = kc._surfaces_for_norm(extract_windows(img_b, sorg.to(torch.int32), S), tq, P, norm)
         f0 = pts - c_off - sorg
-        conv0 = (~tq.good).float()
         if Ct is None:
             name, fn, ref, ops_per_step = "lk_corr_iterate", kc.lk_corr_iterate, kc.lk_corr_iterate_reference, K1_OPS_PER_STEP
             surfaces = (Cx, Cy)
-            sc = torch.stack([tq.G[:, 0, 0], tq.G[:, 0, 1], tq.G[:, 1, 1], tq.tgx, tq.tgy,
-                              f0[:, 0], f0[:, 1], conv0], -1)
+            sc = kc._k1_sc(tq, f0, ~tq.good)
         else:
             name, fn, ref, ops_per_step = ("lk_corr_iterate_gain", kc.lk_corr_iterate_gain,
                                            kc.lk_corr_iterate_gain_reference, K3_OPS_PER_STEP)
             surfaces = (Cx, Cy, Ct)
-            B = tq.Binv
-            sc = torch.stack([B[:, 0, 0], B[:, 0, 1], B[:, 0, 2], B[:, 1, 0], B[:, 1, 1], B[:, 1, 2],
-                              tq.tgx, tq.tgy, tq.st2, f0[:, 0], f0[:, 1], conv0], -1)
-        args = (sc.contiguous(), *surfaces, iters, eps, hi)
+            sc = kc._k3_sc(tq, f0, ~tq.good)
+        args = (sc, *surfaces, iters, eps, hi)
         got = fn(*args)
         want = ref(*args)
         torch.cuda.synchronize()
@@ -722,8 +833,9 @@ def lk_rows(tag, img_a, img_b, fcfg, norm):
 
 def phase_mode_sweep(traj, imu, frame_idx, img0, img1, mcfg):
     """Each photometric mode over the first SWEEP_FRAMES bench frames: the
-    exact lk_corr_align / K3 / K2 launch split per frame (MODE_SPLIT), with
-    4 extract_template and 0 K1 launches per frame, and finite poses."""
+    exact lk_corr_align / lk_corr_align_gain split per frame (MODE_SPLIT),
+    with the launches every mode shares (COMMON_LAUNCHES), and finite
+    poses."""
     import numpy as np
     import torch
 
@@ -734,7 +846,7 @@ def phase_mode_sweep(traj, imu, frame_idx, img0, img1, mcfg):
     T = SWEEP_FRAMES
     frame_t = traj.t[frame_idx[:T]]
     out = {}
-    for mode, (al, k3, k2) in MODE_SPLIT.items():
+    for mode, (al, alg) in MODE_SPLIT.items():
         fcfg = FrontendConfig(temporal_levels=1, klt_norm=mode)
         _cuda.reset_launch_counts()
         t0 = time.perf_counter()
@@ -745,13 +857,13 @@ def phase_mode_sweep(traj, imu, frame_idx, img0, img1, mcfg):
         c = dict(_cuda.launch_counts)
         per = {k: v / T for k, v in c.items()}
         out[mode] = dict(launches=c, seconds=secs, tracks_per_frame_mean=float(np.mean(res.tracking["after_ransac"])))
-        print(f"[modes] {mode:11s}: lk_corr_align {per['lk_corr_align']:.0f}, extract_template "
-              f"{per['extract_template']:.0f}, K2 {per['extract_windows']:.0f}, K1 {per['lk_corr_iterate']:.0f}, "
+        print(f"[modes] {mode:11s}: lk_corr_align {per['lk_corr_align']:.0f}, lk_corr_align_gain "
+              f"{per['lk_corr_align_gain']:.0f}, extract_template {per['extract_template']:.0f}, resample_template "
+              f"{per['resample_template']:.0f}, K2 {per['extract_windows']:.0f}, K1 {per['lk_corr_iterate']:.0f}, "
               f"K3 {per['lk_corr_iterate_gain']:.0f} launches/frame over {T} frames ({secs:.2f} s incl. "
               f"first-call set-up), {out[mode]['tracks_per_frame_mean']:.1f} tracks/frame")
         check(bool(np.isfinite(res.positions).all()), f"non-finite poses under klt_norm={mode!r}")
-        want = dict(lk_corr_align=al, extract_template=4, extract_windows=k2, lk_corr_iterate=0,
-                    lk_corr_iterate_gain=k3)
+        want = dict(COMMON_LAUNCHES, lk_corr_align=al, lk_corr_align_gain=alg)
         check(c == {k: v * T for k, v in want.items()},
               f"klt_norm={mode!r}: launches {c}, expected per frame {want}")
     return out
@@ -809,7 +921,7 @@ def phase_stress(card):
           f"mean {tracks.mean():.1f} (bar 30), min {gate.min_tracks_after_ransac} (bar > 3)")
     print(f"[stress] launches: {counts}; peak device memory {out['peak_memory_gb']:.2f} GB")
     check(bool(np.isfinite(gate.result.positions).all()), "non-finite poses on the stress path")
-    want = dict(lk_corr_align=0, extract_template=4, extract_windows=6, lk_corr_iterate=0, lk_corr_iterate_gain=7)
+    want = dict(COMMON_LAUNCHES, lk_corr_align=0, lk_corr_align_gain=7)
     check(counts == {k: v * T for k, v in want.items()},
           f"stress path launches {counts}, expected per frame {want}")
     check(gate.ate_rmse < 0.13, f"stress ATE {gate.ate_rmse} m is above the 0.13 m bar")
@@ -1005,10 +1117,14 @@ def main(argv=None) -> int:
                                 and r["S"] == 37),
         "lk_corr_iterate_gain": next(r for r in rows if r["name"] == "lk_corr_iterate_gain" and r["N"] == 144
                                      and r["norm"] == "gain"),
+        "lk_corr_align_gain": next(r for r in rows if r["name"] == "lk_corr_align_gain" and r["level"] == 0
+                                   and r["N"] == 144 and r["norm"] == "gain"),
+        "resample_template": next(r for r in rows if r["name"] == "resample_template"),
     }
-    # Launch counts come from the bench path, K3's from the stress path (the
-    # bench path runs klt_norm='none', which never launches K3).
-    launches = dict(main_out["launches"], lk_corr_iterate_gain=stress_out["launches"]["lk_corr_iterate_gain"])
+    # Launch counts come from the bench path, lk_corr_align_gain's from the
+    # stress path (the bench path runs klt_norm='none', which never launches
+    # it).  K2, K1 and K3 have no launch on either path.
+    launches = dict(main_out["launches"], lk_corr_align_gain=stress_out["launches"]["lk_corr_align_gain"])
     kernels = []
     for kname, (source, replaces) in KERNEL_SOURCES.items():
         r = pick[kname]

@@ -7,23 +7,29 @@ problem precomputes two (K, K) cross-correlations of the template gradients
 with its search window (K = S - P + 1) and every Gauss-Newton step only
 interpolates them bilinearly (see the JAX module for the identity).
 
-Kernels on the card (a CPU tensor takes each kernel's plain version):
+Kernels on the card (a CPU tensor takes each kernel's plain version), and
+the paths that launch them:
 
 - ``lk_corr_align`` (``csrc/lk_corr_align.cu``): search window, both
   surfaces and the LK loop of one two-surface problem ('none',
-  'zeromean') in one launch.  Every two-surface call goes through it.
+  'zeromean') in one launch: 7 a frame on the bench path ('none').
+- ``lk_corr_align_gain`` (``csrc/lk_corr_align_gain.cu``): the same with
+  a third surface and the affine-photometric loop, for every
+  three-surface problem ('offset', 'gain'): 7 a frame on the stress path
+  ('gain'); under 'anchor_gain' the anchor problem only.
 - ``extract_template`` (``csrc/extract_template.cu``): the (P+3) template
-  window interpolated as it is copied.
-- ``lk_corr_iterate_gain`` (``csrc/lk_corr_iterate_gain.cu``): the
-  affine-photometric loop with a third surface ('offset', 'gain'), fed by
-  ``patch_extract.extract_windows`` and a depthwise ``conv2d``.
-- ``lk_corr_iterate`` (``csrc/lk_corr_iterate.cu``): the loop alone on
-  precomputed surfaces; no path launches it any more.
+  window interpolated as it is copied: 4 a frame on every path.
+- ``resample_template`` (``csrc/resample_template.cu``): the fused stereo
+  call's backward template, tent-interpolated from the image at the
+  forward result: 1 a frame on every path.
+- ``lk_corr_iterate`` (K1, ``csrc/lk_corr_iterate.cu``),
+  ``lk_corr_iterate_gain`` (K3, ``csrc/lk_corr_iterate_gain.cu``) and
+  ``patch_extract.extract_windows`` (K2): the loops alone on precomputed
+  surfaces and the window copy; no path launches them any more.
 
-The backward template's resampling is an ``einsum``, as the JAX package
-left it to XLA.  Templates always come from the (P+3) window plus four
-bilinear terms, the formula the TPU ran; the template carried from the
-stereo call into the next temporal call depends on one formula for both.
+Templates always come from the (P+3) window plus four bilinear terms, the
+formula the TPU ran; the template carried from the stereo call into the
+next temporal call depends on one formula for both.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from .patch_extract import extract_windows, extract_windows_reference, image_index_ptr, image_stack
+from .patch_extract import extract_windows_reference, image_index_ptr, image_stack
 
 # Search radius beyond the window per level (klt_gemm.py:_SEARCH_RADIUS).
 _SEARCH_RADIUS = 9
@@ -165,21 +171,28 @@ def _template_quantities(sp: torch.Tensor, P: int, norm: str = "none") -> Templa
     return TemplateQ(tgx=tgx_c, tgy=tgy_c, tmpl_c=tmpl_c, st2=st2, Binv=Binv, **base)
 
 
+def _filters_for_norm(tq: TemplateQ, P: int, norm: str):
+    """The correlation filters (N, P, P) of one alignment problem under
+    ``norm``: (gx, gy) for 'none', the mean-centred pair for 'zeromean',
+    (gx, gy, ones) for 'offset' (the box-sum surface) and the mean-centred
+    pair with the zero-mean template for 'gain'.  The zero-mean correction
+    of 'zeromean' and 'gain' folds into mean-centred gradient filters by
+    linearity."""
+    if norm == "none":
+        return tq.gx, tq.gy
+    if norm == "offset":
+        return tq.gx, tq.gy, torch.ones_like(tq.gx)
+    gxc, gyc = _centred_filters(tq, P)
+    return (gxc, gyc) if norm == "zeromean" else (gxc, gyc, tq.tmpl_c)
+
+
 def _surfaces_for_norm(spatch: torch.Tensor, tq: TemplateQ, P: int, norm: str):
     """(Cx, Cy, Ct) for one alignment problem under ``norm``: Ct is the
     box-sum surface for 'offset', the zero-mean-template surface for 'gain'
-    and None otherwise.  The zero-mean correction of 'zeromean' and 'gain'
-    folds into mean-centred gradient filters by linearity."""
-    if norm == "none":
-        Cx, Cy = _corr_surfaces(spatch, tq.gx, tq.gy, P)
-        return Cx, Cy, None
-    if norm == "offset":
-        return _corr_surfaces(spatch, tq.gx, tq.gy, P, extra=(torch.ones_like(tq.gx),))
-    gxc, gyc = _centred_filters(tq, P)
-    if norm == "zeromean":
-        Cx, Cy = _corr_surfaces(spatch, gxc, gyc, P)
-        return Cx, Cy, None
-    return _corr_surfaces(spatch, gxc, gyc, P, extra=(tq.tmpl_c,))
+    and None otherwise."""
+    gx, gy, *extra = _filters_for_norm(tq, P, norm)
+    surfaces = _corr_surfaces(spatch, gx, gy, P, extra=tuple(extra))
+    return surfaces if extra else surfaces + (None,)
 
 
 def _centred_filters(tq: TemplateQ, P: int):
@@ -328,12 +341,14 @@ def lk_corr_iterate_gain(
     )
 
 
-def _align_smem_bytes(S: int, P: int) -> int:
-    """Shared memory of one ``lk_corr_align`` block: the window at a row
-    pitch of the least multiple of 4 above S + 3 floats, the (gx, gy) taps
-    and the (Cx, Cy) cells (``csrc/lk_corr_align.cu:window_pitch``)."""
+def _align_smem_bytes(S: int, P: int, nf: int = 2) -> int:
+    """Shared memory of one ``lk_corr_align`` (``nf`` = 2 filters) or
+    ``lk_corr_align_gain`` (3) block: the window at a row pitch of the least
+    multiple of 4 above S + 3 floats (``window_pitch`` in both sources), the
+    taps of the filters and the cells of the surfaces, interleaved as float2
+    or float4."""
     K = S - P + 1
-    return 4 * S * (((S + 3) | 3) + 1) + 8 * (P * P + K * K)
+    return 4 * S * (((S + 3) | 3) + 1) + (8 if nf == 2 else 16) * (P * P + K * K)
 
 
 def lk_corr_align_reference(
@@ -352,6 +367,80 @@ def lk_corr_align_reference(
     return lk_corr_iterate_reference(sc, Cx, Cy, iters, eps, hi)
 
 
+def lk_corr_align_gain_reference(
+    img: torch.Tensor, origins: torch.Tensor, S: int, gx: torch.Tensor, gy: torch.Tensor,
+    gt: torch.Tensor, sc: torch.Tensor, iters: int, eps: float, hi: float,
+    img_index: torch.Tensor | None = None, surfaces_out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of ``lk_corr_align_gain``: the composition it replaces,
+    ``extract_windows_reference`` -> ``_corr_surfaces`` with a third filter
+    -> ``lk_corr_iterate_gain_reference``."""
+    P = gx.shape[-1]
+    spatch = extract_windows_reference(img, origins, S, img_index)
+    Cx, Cy, Ct = _corr_surfaces(spatch, gx, gy, P, extra=(gt,))
+    if surfaces_out is not None:
+        surfaces_out.copy_(torch.stack([Cx, Cy, Ct], dim=1))
+    return lk_corr_iterate_gain_reference(sc, Cx, Cy, Ct, iters, eps, hi)
+
+
+def _launch_align(name, reference, img, origins, S, filters, sc, iters, eps, hi, img_index, surfaces_out):
+    """Shared wrapper of ``lk_corr_align`` (two filters, sc (N, 8)) and
+    ``lk_corr_align_gain`` (three, sc (N, 12)): checks the inputs, sends CPU
+    tensors to ``reference`` and launches the kernel ``name`` on CUDA
+    tensors (or raises)."""
+    imgs = image_stack(img)
+    B, H, W = imgs.shape
+    N = origins.shape[0]
+    nf = len(filters)
+    P = filters[0].shape[-1]
+    K = S - P + 1
+    if origins.shape != (N, 2) or sc.shape != (N, 4 * nf):
+        raise ValueError(f"{name}: origins (N, 2) and sc (N, {4 * nf}) expected")
+    if any(g.shape != (N, P, P) for g in filters):
+        raise ValueError(f"{name}: {nf} filters (N, P, P) expected")
+    if not (P < S <= min(H, W)):
+        raise ValueError(f"{name}: window {S} must exceed P={P} and fit a {H}x{W} image")
+    if not 0.0 <= hi <= K - 2:
+        raise ValueError(f"hi={hi} must lie in [0, K-2] so all four taps stay in range")
+    if _align_smem_bytes(S, P, nf) > 48 * 1024:
+        raise ValueError(f"{name}: S={S}, P={P} need more than 48 KB of shared memory")
+    if img_index is None and B != 1:
+        raise ValueError("a (B, H, W) stack with B > 1 needs img_index")
+    if surfaces_out is not None and surfaces_out.shape != (N, nf, K, K):
+        raise ValueError(f"{name}: surfaces_out (N, {nf}, {K}, {K}) expected")
+    if N == 0:  # the kernel launches nothing for it, so nothing is counted
+        return torch.empty((0, 2), dtype=sc.dtype, device=sc.device)
+    if imgs.device.type == "cpu":
+        return reference(imgs, origins, S, *filters, sc, iters, eps, hi, img_index, surfaces_out)
+    if imgs.device.type != "cuda":
+        raise ValueError(f"unsupported device {imgs.device}")
+    tensors = (imgs, *filters, sc) + (() if surfaces_out is None else (surfaces_out,))
+    if any(t.dtype != torch.float32 for t in tensors) or origins.dtype != torch.int32:
+        raise TypeError(f"{name} takes float32 tensors and int32 origins")
+    if any(t.device != imgs.device for t in tensors + (origins,)):
+        raise ValueError(f"{name} inputs must lie on one device")
+    if not imgs.is_contiguous() or not (surfaces_out is None or surfaces_out.is_contiguous()):
+        raise ValueError(f"{name} takes a contiguous image and surfaces_out")
+    # The per-feature inputs are small; filters of a resampled template
+    # (the backward problem) may come in a permuted layout.
+    origins, sc = origins.contiguous(), sc.contiguous()
+    filters = tuple(g.contiguous() for g in filters)
+    out = torch.empty((N, 2), dtype=sc.dtype, device=sc.device)
+    # 16-byte row copies need 16-byte aligned rows: W a multiple of 4 floats.
+    vec = int(W % 4 == 0 and imgs.data_ptr() % 16 == 0)
+    fn = _cuda.kernel_function(name)
+    rc = fn(
+        imgs.data_ptr(), origins.data_ptr(), image_index_ptr(img_index, N, imgs),
+        *(g.data_ptr() for g in filters), sc.data_ptr(), out.data_ptr(),
+        None if surfaces_out is None else surfaces_out.data_ptr(),
+        N, B, H, W, H * W, S, P, int(iters), float(eps), float(hi), vec,
+        torch.cuda.current_stream(imgs.device).cuda_stream,
+    )
+    _cuda.check_launch(name, rc)
+    _cuda.launch_counts[name] += 1
+    return out
+
+
 def lk_corr_align(
     img: torch.Tensor, origins: torch.Tensor, S: int, gx: torch.Tensor, gy: torch.Tensor,
     sc: torch.Tensor, iters: int, eps: float, hi: float,
@@ -364,67 +453,23 @@ def lk_corr_align(
     sc (N, 8) in K1's layout.  Returns the final window-origin coordinates
     f (N, 2), each clamped to [0, hi]; ``surfaces_out`` (N, 2, K, K), when
     given, receives the surfaces."""
-    imgs = image_stack(img)
-    B, H, W = imgs.shape
-    N = origins.shape[0]
-    P = gx.shape[-1]
-    K = S - P + 1
-    if origins.shape != (N, 2) or sc.shape != (N, 8):
-        raise ValueError("lk_corr_align: origins (N, 2) and sc (N, 8) expected")
-    if gx.shape != (N, P, P) or gy.shape != (N, P, P):
-        raise ValueError("lk_corr_align: filters gx, gy (N, P, P) expected")
-    if not (P < S <= min(H, W)):
-        raise ValueError(f"lk_corr_align: window {S} must exceed P={P} and fit a {H}x{W} image")
-    if not 0.0 <= hi <= K - 2:
-        raise ValueError(f"hi={hi} must lie in [0, K-2] so all four taps stay in range")
-    if _align_smem_bytes(S, P) > 48 * 1024:
-        raise ValueError(f"lk_corr_align: S={S}, P={P} need more than 48 KB of shared memory")
-    if img_index is None and B != 1:
-        raise ValueError("a (B, H, W) stack with B > 1 needs img_index")
-    if surfaces_out is not None and surfaces_out.shape != (N, 2, K, K):
-        raise ValueError(f"lk_corr_align: surfaces_out (N, 2, {K}, {K}) expected")
-    if N == 0:  # the kernel launches nothing for it, so nothing is counted
-        return torch.empty((0, 2), dtype=sc.dtype, device=sc.device)
-    if imgs.device.type == "cpu":
-        return lk_corr_align_reference(imgs, origins, S, gx, gy, sc, iters, eps, hi, img_index, surfaces_out)
-    if imgs.device.type != "cuda":
-        raise ValueError(f"unsupported device {imgs.device}")
-    tensors = (imgs, gx, gy, sc) + (() if surfaces_out is None else (surfaces_out,))
-    if any(t.dtype != torch.float32 for t in tensors) or origins.dtype != torch.int32:
-        raise TypeError("lk_corr_align takes float32 tensors and int32 origins")
-    if any(t.device != imgs.device for t in tensors + (origins,)):
-        raise ValueError("lk_corr_align inputs must lie on one device")
-    if not imgs.is_contiguous() or not (surfaces_out is None or surfaces_out.is_contiguous()):
-        raise ValueError("lk_corr_align takes a contiguous image and surfaces_out")
-    # The per-feature inputs are small; filters of a resampled template
-    # (the backward problem) come in a permuted layout.
-    origins, gx, gy, sc = (t.contiguous() for t in (origins, gx, gy, sc))
-    out = torch.empty((N, 2), dtype=sc.dtype, device=sc.device)
-    # 16-byte row copies need 16-byte aligned rows: W a multiple of 4 floats.
-    vec = int(W % 4 == 0 and imgs.data_ptr() % 16 == 0)
-    fn = _cuda.kernel_function("lk_corr_align")
-    rc = fn(
-        imgs.data_ptr(), origins.data_ptr(), image_index_ptr(img_index, N, imgs),
-        gx.data_ptr(), gy.data_ptr(), sc.data_ptr(), out.data_ptr(),
-        None if surfaces_out is None else surfaces_out.data_ptr(),
-        N, B, H, W, H * W, S, P, int(iters), float(eps), float(hi), vec,
-        torch.cuda.current_stream(imgs.device).cuda_stream,
-    )
-    _cuda.check_launch("lk_corr_align", rc)
-    _cuda.launch_counts["lk_corr_align"] += 1
-    return out
+    return _launch_align("lk_corr_align", lk_corr_align_reference, img, origins, S, (gx, gy), sc,
+                         iters, eps, hi, img_index, surfaces_out)
 
 
-def _run_iterations(Cx, Cy, Ct, tq: TemplateQ, f0, conv0, iters, eps, S, P):
-    """Converged window-origin coordinates f (N, 2) of one three-surface
-    alignment by the affine-photometric loop (K3)."""
-    B = tq.Binv
-    sc = torch.stack(
-        [B[:, 0, 0], B[:, 0, 1], B[:, 0, 2], B[:, 1, 0], B[:, 1, 1], B[:, 1, 2],
-         tq.tgx, tq.tgy, tq.st2, f0[:, 0], f0[:, 1], conv0.to(Cx.dtype)],
-        dim=-1,
-    )
-    return lk_corr_iterate_gain(sc, Cx, Cy, Ct, iters, eps, float(S - P - 1))
+def lk_corr_align_gain(
+    img: torch.Tensor, origins: torch.Tensor, S: int, gx: torch.Tensor, gy: torch.Tensor,
+    gt: torch.Tensor, sc: torch.Tensor, iters: int, eps: float, hi: float,
+    img_index: torch.Tensor | None = None, surfaces_out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One three-surface LK problem per feature in one launch: as
+    ``lk_corr_align``, with a third filter ``gt`` (N, P, P) (ones for
+    'offset', the zero-mean template for 'gain') and up to ``iters``
+    affine-photometric steps from sc (N, 12) in K3's layout.  Returns f
+    (N, 2), each clamped to [0, hi]; ``surfaces_out`` (N, 3, K, K), when
+    given, receives the surfaces."""
+    return _launch_align("lk_corr_align_gain", lk_corr_align_gain_reference, img, origins, S, (gx, gy, gt),
+                         sc, iters, eps, hi, img_index, surfaces_out)
 
 
 def _k1_sc(tq: TemplateQ, f0, conv0) -> torch.Tensor:
@@ -437,29 +482,28 @@ def _k1_sc(tq: TemplateQ, f0, conv0) -> torch.Tensor:
     )
 
 
-def _extract_at_origins(img, org, S):
-    """(N, S, S) windows at integer-valued float origins (N, 2) [x, y]."""
-    return extract_windows(img, org.to(torch.int32), S)
+def _k3_sc(tq: TemplateQ, f0, conv0) -> torch.Tensor:
+    """K3's per-feature scalars (N, 12) = (B00, B01, B02, B10, B11, B12,
+    tgx, tgy, st2, f0x, f0y, converged0)."""
+    B = tq.Binv
+    return torch.stack(
+        [B[:, 0, 0], B[:, 0, 1], B[:, 0, 2], B[:, 1, 0], B[:, 1, 1], B[:, 1, 2],
+         tq.tgx, tq.tgy, tq.st2, f0[:, 0], f0[:, 1], conv0.to(f0.dtype)],
+        dim=-1,
+    )
 
 
-# Norms whose problems have two surfaces: they go through lk_corr_align.
-_TWO_SURFACE = ("none", "zeromean")
-
-
-def _align(img, org, S, tq: TemplateQ, f0, iters, eps, P, norm, window=None):
+def _align(img, org, S, tq: TemplateQ, f0, iters, eps, P, norm):
     """Converged window-origin coordinates f (N, 2) of one alignment whose
     (S, S) search windows lie at the integer-valued float origins ``org`` of
-    ``img``: a two-surface norm in one ``lk_corr_align`` launch, the
-    three-surface norms through K2 (or the already extracted ``window``),
-    ``conv2d`` and K3.  Lanes whose template fails the quality gate start
-    frozen."""
-    if norm in _TWO_SURFACE:
-        gx, gy = (tq.gx, tq.gy) if norm == "none" else _centred_filters(tq, P)
-        sc = _k1_sc(tq, f0, ~tq.good)
-        return lk_corr_align(img, org.to(torch.int32), S, gx, gy, sc, iters, eps, float(S - P - 1))
-    spatch = _extract_at_origins(img, org, S) if window is None else window
-    Cx, Cy, Ct = _surfaces_for_norm(spatch, tq, P, norm)
-    return _run_iterations(Cx, Cy, Ct, tq, f0, ~tq.good, iters, eps, S, P)
+    ``img``, in one launch: ``lk_corr_align`` for a two-surface norm,
+    ``lk_corr_align_gain`` for a three-surface one.  Lanes whose template
+    fails the quality gate start frozen."""
+    filters = _filters_for_norm(tq, P, norm)
+    hi = float(S - P - 1)
+    if len(filters) == 2:
+        return lk_corr_align(img, org.to(torch.int32), S, *filters, _k1_sc(tq, f0, ~tq.good), iters, eps, hi)
+    return lk_corr_align_gain(img, org.to(torch.int32), S, *filters, _k3_sc(tq, f0, ~tq.good), iters, eps, hi)
 
 
 def _template_geometry(pts, P, H, W):
@@ -535,6 +579,62 @@ def extract_template(
     return out
 
 
+def resample_template_reference(img, pts, origins, Sb, P, img_index=None):
+    """Plain version of ``resample_template``: the expression it replaces,
+    the (Sb, Sb) block by ``extract_windows_reference`` and the tent-weight
+    ``einsum``."""
+    q = P + 2
+    ob = torch.clamp(pts - (P + 1) / 2.0 - origins.to(pts.dtype), 0.0, Sb - (P + 3.0))
+    block = extract_windows_reference(img, origins, Sb, img_index)
+    return _sample(_tent_weights(ob[:, 1], q, Sb), block, _tent_weights(ob[:, 0], q, Sb))
+
+
+def resample_template(
+    img: torch.Tensor, pts: torch.Tensor, origins: torch.Tensor, Sb: int, P: int,
+    img_index: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(N, P+2, P+2) template super-patches at float32 points ``pts``
+    (N, 2) [x, y] resampled from the (Sb, Sb) blocks at int32 ``origins``
+    (N, 2) of ``img`` ((H, W), or (B, H, W) with int32 ``img_index``
+    (N,)): ``ob = clamp(pts - (P+1)/2 - origins, 0, Sb - (P+3))`` and
+    ``Wy(ob_y) . block . Wx(ob_x)^T`` with tent weights.  The kernel reads
+    only the (P+3) window of the block that the weights touch, and returns
+    the layout the plain version's einsum returns (each template stored
+    transposed), so that reductions over the templates sum in the same
+    order on both."""
+    imgs = image_stack(img)
+    B, H, W = imgs.shape
+    N = pts.shape[0]
+    if pts.shape != (N, 2) or origins.shape != (N, 2):
+        raise ValueError("resample_template: pts (N, 2) and origins (N, 2) expected")
+    if not 0 < P + 3 <= Sb <= min(H, W):
+        raise ValueError(f"resample_template: block {Sb} must hold the window {P + 3} and fit a {H}x{W} image")
+    if img_index is None and B != 1:
+        raise ValueError("a (B, H, W) stack with B > 1 needs img_index")
+    if N == 0:  # the kernel launches nothing for it, so nothing is counted
+        return torch.empty((0, P + 2, P + 2), dtype=imgs.dtype, device=imgs.device)
+    if imgs.device.type == "cpu":
+        return resample_template_reference(imgs, pts, origins, Sb, P, img_index)
+    if imgs.device.type != "cuda":
+        raise ValueError(f"unsupported device {imgs.device}")
+    if imgs.dtype != torch.float32 or pts.dtype != torch.float32 or origins.dtype != torch.int32:
+        raise TypeError("resample_template takes a float32 image and points and int32 origins")
+    if pts.device != imgs.device or origins.device != imgs.device:
+        raise ValueError("resample_template inputs must lie on one device")
+    if not imgs.is_contiguous():
+        raise ValueError("resample_template takes a contiguous image")
+    pts, origins = pts.contiguous(), origins.contiguous()
+    out = torch.empty((N, P + 2, P + 2), dtype=imgs.dtype, device=imgs.device).transpose(1, 2)
+    fn = _cuda.kernel_function("resample_template")
+    rc = fn(
+        imgs.data_ptr(), pts.data_ptr(), origins.data_ptr(), image_index_ptr(img_index, N, imgs),
+        out.data_ptr(), N, B, H, W, H * W, Sb, P, torch.cuda.current_stream(imgs.device).cuda_stream,
+    )
+    _cuda.check_launch("resample_template", rc)
+    _cuda.launch_counts["resample_template"] += 1
+    return out
+
+
 def fused_stereo_supported(img_shape, win: int) -> bool:
     """True when the image is large enough for ``stereo_anchor_lr_fused``'s
     margined search-window geometry."""
@@ -578,12 +678,9 @@ def stereo_anchor_lr_fused(
         return (p[:, 0] >= r) & (p[:, 0] < W - r) & (p[:, 1] >= r) & (p[:, 1] < H - r)
 
     # Search windows on img0 centred at the pre-refinement cam0 points,
-    # shared by the anchor and backward problems; extracted only for a
-    # three-surface norm (lk_corr_align reads its own windows).
+    # shared by the anchor and backward problems (each launch reads its own).
     sorg0 = _clip_xy(torch.floor(pts0) - (S // 2), 0.0, W - S, H - S)
     a_norm = norm if anchor_norm is None else anchor_norm
-    three = norm not in _TWO_SURFACE or (anchor_sp is not None and a_norm not in _TWO_SURFACE)
-    big0 = _extract_at_origins(img0, sorg0, S) if three else None
 
     pts0_out = pts0
     accept = None
@@ -591,8 +688,7 @@ def stereo_anchor_lr_fused(
         A = anchor_sp.shape[0]
         tqa = _template_quantities(anchor_sp, P, a_norm)
         f0a = pts0[:A] - c_off - sorg0[:A]
-        fa = _align(img0, sorg0[:A], S, tqa, f0a, iters, eps, P, a_norm,
-                    window=None if big0 is None else big0[:A])
+        fa = _align(img0, sorg0[:A], S, tqa, f0a, iters, eps, P, a_norm)
         pa = fa + c_off + sorg0[:A]
         oka = tqa.good & _inb(pa) & _inb(pts0[:A])
         corr2 = torch.sum((pa - pts0[:A]) ** 2, dim=1)
@@ -605,28 +701,25 @@ def stereo_anchor_lr_fused(
     sp = extract_template(img0, pts0_out, P)
     tq = _template_quantities(sp, P, norm)
 
-    # Forward search: one (S+2)-window whose +-1 margins hold the backward
-    # template window at any in-range forward result; the search window is
-    # its inner (S, S) part.
+    # Forward search: the inner (S, S) part of an (S+2)-block at o1 whose
+    # +-1 margins hold the backward template window at any in-range forward
+    # result.
     guess2 = guess + (pts0_out - pts0)
     o1 = _clip_xy(torch.floor(guess2) - (S // 2) - 1, 0.0, W - Sb, H - Sb)
-    big1 = _extract_at_origins(img1, o1, Sb)
     so = o1 + 1.0
     f0 = guess2 - c_off - so
-    f = _align(img1, so, S, tq, f0, iters, eps, P, norm, window=big1[:, 1 : 1 + S, 1 : 1 + S])
+    f = _align(img1, so, S, tq, f0, iters, eps, P, norm)
     pts1 = f + c_off + so
     okf = tq.good & _inb(pts1) & _inb(pts0_out)
     res = KltResult(pts=pts1, valid=valid_in & okf)
 
-    # Backward round trip: template resampled from big1 at the forward
-    # result, search in the img0 windows at sorg0 from the refined cam0
-    # position.
-    q = P + 2
-    ob = torch.clamp(pts1 - (P + 1) / 2.0 - o1, 0.0, Sb - (P + 3.0))
-    sp_b = _sample(_tent_weights(ob[:, 1], q, Sb), big1, _tent_weights(ob[:, 0], q, Sb))
+    # Backward round trip: template resampled from the (S+2)-block at the
+    # forward result, search in the img0 windows at sorg0 from the refined
+    # cam0 position.
+    sp_b = resample_template(img1, pts1, o1.to(torch.int32), Sb, P)
     tqb = _template_quantities(sp_b, P, norm)
     f0b = pts0_out - c_off - sorg0
-    fb = _align(img0, sorg0, S, tqb, f0b, iters, eps, P, norm, window=big0)
+    fb = _align(img0, sorg0, S, tqb, f0b, iters, eps, P, norm)
     rt = fb + c_off + sorg0
     okb = tqb.good & _inb(rt) & _inb(pts1)
     rt2 = torch.where(

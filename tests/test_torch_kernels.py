@@ -1,4 +1,4 @@
-"""The port's five hand-written CUDA kernels, their wrappers and their
+"""The port's seven hand-written CUDA kernels, their wrappers and their
 plain versions.
 
 The tests marked ``cuda`` hold each kernel against its plain version on the
@@ -8,7 +8,8 @@ JAX nor the JAX package, so on the machine with the card it runs alone:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 
 (the JAX parity of the plain versions is in test_torch_patch_extract.py,
-test_torch_klt_corr.py and test_torch_lk_align.py)."""
+test_torch_klt_corr.py, test_torch_lk_align.py and
+test_torch_lk_align_gain.py)."""
 import numpy as np
 import pytest
 import torch
@@ -54,13 +55,10 @@ def _lk_problem(seed, N, H=240, W=320, shift=(2.6, -1.9), device="cpu"):
     pts = torch.as_tensor(pts, device=device)
     tq = kc._template_quantities(kc.extract_template(a, pts, P), P)
     sorg = kc._clip_xy(torch.floor(pts) - S // 2, 0.0, W - S, H - S)
-    Cx, Cy = kc._corr_surfaces(kc._extract_at_origins(b, sorg, S), tq.gx, tq.gy, P)
-    f0 = pts - (P - 1) / 2.0 - sorg
+    Cx, Cy = kc._corr_surfaces(extract_windows(b, sorg.to(torch.int32), S), tq.gx, tq.gy, P)
     frozen = ~tq.good
     frozen[::9] = True
-    sc = torch.stack([tq.G[:, 0, 0], tq.G[:, 0, 1], tq.G[:, 1, 1], tq.tgx, tq.tgy,
-                      f0[:, 0], f0[:, 1], frozen.float()], -1)
-    return sc, Cx, Cy, ~frozen
+    return kc._k1_sc(tq, pts - (P - 1) / 2.0 - sorg, frozen), Cx, Cy, ~frozen
 
 
 def _gain_problem(seed, N, norm, H=240, W=320, device="cpu"):
@@ -75,14 +73,10 @@ def _gain_problem(seed, N, norm, H=240, W=320, device="cpu"):
     pts = torch.as_tensor(pts, device=device)
     tq = kc._template_quantities(kc.extract_template(a, pts, P), P, norm)
     sorg = kc._clip_xy(torch.floor(pts) - S // 2, 0.0, W - S, H - S)
-    Cx, Cy, Ct = kc._surfaces_for_norm(kc._extract_at_origins(b, sorg, S), tq, P, norm)
-    f0 = pts - (P - 1) / 2.0 - sorg
+    Cx, Cy, Ct = kc._surfaces_for_norm(extract_windows(b, sorg.to(torch.int32), S), tq, P, norm)
     frozen = ~tq.good
     frozen[::9] = True
-    B = tq.Binv
-    sc = torch.stack([B[:, 0, 0], B[:, 0, 1], B[:, 0, 2], B[:, 1, 0], B[:, 1, 1], B[:, 1, 2],
-                      tq.tgx, tq.tgy, tq.st2, f0[:, 0], f0[:, 1], frozen.float()], -1)
-    return sc, Cx, Cy, Ct, ~frozen
+    return kc._k3_sc(tq, pts - (P - 1) / 2.0 - sorg, frozen), Cx, Cy, Ct, ~frozen
 
 
 def _align_problem(seed, N, norm="none", H=240, W=320, device="cpu"):
@@ -103,6 +97,44 @@ def _align_problem(seed, N, norm="none", H=240, W=320, device="cpu"):
     frozen[::9] = True
     sc = kc._k1_sc(tq, pts - (P - 1) / 2.0 - sorg, frozen)
     return b, sorg.to(torch.int32), S_, gx, gy, sc, ~frozen
+
+
+def _align_gain_problem(seed, N, norm, H=240, W=320, device="cpu"):
+    """(img1, origins, S, gx, gy, gt, sc, live) of lk_corr_align_gain for N
+    features of a texture tracked into a shifted, gain- and offset-changed
+    copy of it under ``norm`` ('gain' or 'offset'), built as the main path
+    builds them."""
+    img0 = _texture(seed, H, W)
+    img1 = 1.2 * np.roll(img0, (-2, 3), (0, 1)) - 10.0
+    rng = np.random.default_rng(seed + 1)
+    pts = np.stack([rng.uniform(20, W - 20, N), rng.uniform(20, H - 20, N)], 1).astype(np.float32)
+    a, b = (torch.as_tensor(x.astype(np.float32), device=device) for x in (img0, img1))
+    pts = torch.as_tensor(pts, device=device)
+    tq = kc._template_quantities(kc.extract_template(a, pts, P), P, norm)
+    S_ = min(S, H, W)
+    sorg = kc._clip_xy(torch.floor(pts) - S_ // 2, 0.0, W - S_, H - S_)
+    frozen = ~tq.good
+    frozen[::9] = True
+    sc = kc._k3_sc(tq, pts - (P - 1) / 2.0 - sorg, frozen)
+    return (b, sorg.to(torch.int32), S_, *kc._filters_for_norm(tq, P, norm), sc, ~frozen)
+
+
+def _resample_inputs(H, W, n, seed, device="cpu"):
+    """(pts, origins, Sb) of n resample_template lanes of the fused call's
+    geometry on an H x W image: forward results up to 9 px from their
+    block centres, the first six offsets clamping at both ends of [0,
+    Sb - (P+3)] or sitting on them."""
+    rng = np.random.default_rng(seed)
+    S_ = min(S, H, W)
+    Sb = S_ + 2
+    guess = np.stack([rng.uniform(0, W - 1, n), rng.uniform(0, H - 1, n)], 1)
+    o1 = np.clip(np.floor(guess) - S_ // 2 - 1, 0, [W - Sb, H - Sb])
+    pts = guess + rng.uniform(-9, 9, (n, 2))
+    top = Sb - (P + 3)
+    pts[:6] = o1[:6] + (P + 1) / 2.0 + np.array(
+        [[-2.5, -0.3], [top + 1.7, top + 0.2], [0, top], [3, 5], [4.75, 0.5], [top - 0.25, 1 - 2.0**-14]])
+    return (torch.as_tensor(pts.astype(np.float32), device=device),
+            torch.as_tensor(o1.astype(np.int32), device=device), Sb)
 
 
 def _edge_points(H, W, n, seed, device="cpu"):
@@ -311,6 +343,83 @@ def test_lk_corr_align_kernel_image_index(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["gain", "offset"])
+@pytest.mark.parametrize("N,H,W", [(48, 480, 752), (96, 480, 752), (144, 480, 752), (48, 60, 94)])
+def test_lk_corr_align_gain_kernel_matches_plain(cuda_device, N, H, W, norm):
+    """Each of the three surfaces within 1e-5 x its own max|C| of the plain
+    version's conv2d (full f32, as the main path runs it; 'gain''s Ct
+    correlates a zero-mean template); valid lanes within 2 * eps; frozen
+    lanes keep their start point exactly.  W = 94 takes the 4-byte window
+    copies, the others the 16-byte ones."""
+    img, org, S_, gx, gy, gt, sc, live = _align_gain_problem(N, N, norm, H, W, device=cuda_device)
+    K = S_ - P + 1
+    surf = torch.empty((N, 3, K, K), device=cuda_device)
+    surf_ref = torch.empty_like(surf)
+    args = (img, org, S_, gx, gy, gt, sc, ITERS, EPS, float(K - 2))
+    before = _cuda.launch_counts["lk_corr_align_gain"]
+    got = kc.lk_corr_align_gain(*args, surfaces_out=surf)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["lk_corr_align_gain"] == before + 1
+    with matmul_precision_scope("tensorfloat32"):
+        want = kc.lk_corr_align_gain_reference(*args, surfaces_out=surf_ref)
+    for i in range(3):
+        assert float((surf[:, i] - surf_ref[:, i]).abs().max()) <= 1e-5 * float(surf_ref[:, i].abs().max())
+    assert torch.isfinite(got).all()
+    assert float((got - want)[live].abs().max()) <= 2 * EPS
+    assert torch.equal(got[~live], sc[~live, 9:11])
+    # Without the surfaces output a frozen lane skips its window: same result.
+    assert torch.equal(kc.lk_corr_align_gain(*args), got)
+
+
+@pytest.mark.cuda
+def test_lk_corr_align_gain_kernel_image_index(cuda_device):
+    """A (2, H, W) stack with a per-feature image index gives each image's
+    own result."""
+    a = _align_gain_problem(5, 40, "gain", H=240, W=376, device=cuda_device)
+    b = _align_gain_problem(6, 40, "gain", H=240, W=376, device=cuda_device)
+    imgs = torch.stack([a[0], b[0]])
+    index = torch.tensor([0] * 40 + [1] * 40, dtype=torch.int32, device=cuda_device)
+    org, gx, gy, gt, sc = (torch.cat([a[i], b[i]]) for i in (1, 3, 4, 5, 6))
+    hi = float(a[2] - P - 1)
+    got = kc.lk_corr_align_gain(imgs, org, a[2], gx, gy, gt, sc, ITERS, EPS, hi, img_index=index)
+    one = kc.lk_corr_align_gain(a[0], *a[1:7], ITERS, EPS, hi)
+    two = kc.lk_corr_align_gain(b[0], *b[1:7], ITERS, EPS, hi)
+    assert torch.equal(got, torch.cat([one, two]))
+
+
+@pytest.mark.cuda
+def test_resample_template_kernel_matches_plain(cuda_device):
+    """Within 2e-6 x max|sp_b| of the plain tent-weight einsum (a batched
+    GEMM whose association is not specified) and the same quality gate, on
+    the four pyramid level sizes, with offsets clamping at both ends."""
+    rng = np.random.default_rng(5)
+    for H, W in [(480, 752), (240, 376), (120, 188), (60, 94)]:
+        img = torch.as_tensor(_texture(int(rng.integers(1000)), H, W), device=cuda_device)
+        pts, org, Sb = _resample_inputs(H, W, 144, H, device=cuda_device)
+        before = _cuda.launch_counts["resample_template"]
+        got = kc.resample_template(img, pts, org, Sb, P)
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts["resample_template"] == before + 1
+        with matmul_precision_scope("tensorfloat32"):
+            want = kc.resample_template_reference(img, pts, org, Sb, P)
+            assert torch.equal(kc._template_quantities(got, P).good, kc._template_quantities(want, P).good)
+        assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
+        # The einsum's layout, so reductions downstream sum in the same order.
+        assert got.stride() == want.stride()
+
+
+@pytest.mark.cuda
+def test_resample_template_kernel_image_index(cuda_device):
+    imgs = torch.rand((3, 120, 188), device=cuda_device) * 255
+    pts, org, Sb = _resample_inputs(120, 188, 30, 2, device=cuda_device)
+    index = torch.tensor([-1, 5] + [0, 1, 2] * 9 + [2], dtype=torch.int32, device=cuda_device)
+    got = kc.resample_template(imgs, pts, org, Sb, P, index)
+    with matmul_precision_scope("tensorfloat32"):
+        want = kc.resample_template_reference(imgs, pts, org, Sb, P, index)
+    assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
 def test_extract_template_kernel_matches_plain(cuda_device):
     """Bit-exact on the four pyramid level sizes of the main path, with
     points at and past the image edges (origins and offsets clamped)."""
@@ -351,6 +460,12 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda_device):
     with pytest.raises(TypeError):
         kc.extract_template(img64, torch.zeros((3, 2), device=cuda_device, dtype=torch.float64), P)
     g = torch.zeros((3, P, P), device=cuda_device, dtype=torch.float64)
+    org = torch.zeros((3, 2), dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
-        kc.lk_corr_align(img64, torch.zeros((3, 2), dtype=torch.int32, device=cuda_device), S, g, g,
-                         torch.zeros((3, 8), device=cuda_device, dtype=torch.float64), 30, 0.01, HI)
+        kc.lk_corr_align(img64, org, S, g, g, torch.zeros((3, 8), device=cuda_device, dtype=torch.float64),
+                         30, 0.01, HI)
+    with pytest.raises(TypeError):
+        kc.lk_corr_align_gain(img64, org, S, g, g, g, torch.zeros((3, 12), device=cuda_device, dtype=torch.float64),
+                              30, 0.01, HI)
+    with pytest.raises(TypeError):
+        kc.resample_template(img64, torch.zeros((3, 2), device=cuda_device, dtype=torch.float64), org, 37, P)
