@@ -28,15 +28,33 @@ Phases, each of which fails the run (exit code 1) if it fails:
    them leave, under ``torch.profiler``: device busy share and the kernels
    that take the device time (``<out>/profile.txt``); then once more with
    each stage of a frame timed;
-7. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
+7. batched kernels: the four kernels of the main path on a B=4 image stack
+   with a per-window image index, against their plain versions and against
+   one launch per lane (bit-equal);
+8. distinct lanes: B=4 sequences of the bench scene, each starting at its
+   own trajectory offset (rendered on the card), stepped together over
+   DISTINCT_FRAMES frames by ``parallel/vio_multiseq.py:run_vio_batch``
+   with the launch counts zeroed just before and read just after (the same
+   7 / 4 / 1 per batched frame), against four one-lane runs: feature ids
+   and validity equal on the first 10 frames, each lane's ATE within
+   2e-4 m of its one-lane run;
+9. batch sweep: B in SWEEP_BATCHES with bench.py's semantics (images and
+   IMU shared, states broadcast from the state the first bench frames
+   leave) over the last N_TAIL bench frames: aggregate frames/s, device
+   busy share, device ops and host syncs per frame, peak device memory,
+   launches per frame, and lane ATEs (at B=16 the worst lane within 1e-4 m
+   of lane 0);
+10. entry point: ``python -m msckf_stereo_c_torch.bench`` at B=16 over 20
+   frames, its one JSON line parsed;
+11. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
    (721 stereo frames rendered on the card with every stress channel on,
    ``klt_norm='gain'``), launch counts zeroed just before and read just
    after (7 ``lk_corr_align_gain``, 4 ``extract_template``, 1
    ``resample_template`` and none of the others per frame), the gate's ATE
    and track bars,
-   frames/s and render time; then the same run with each stage timed and
-   its host syncs counted;
-8. the card's name and power limit, the ``{"kernels": [...]}`` line, then
+   frames/s and render time; then the first STRESS_STAGE_SECONDS again with
+   each stage timed and its host syncs counted;
+12. the card's name and power limit, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Details go to ``<out>/chip_smoke.json``.  The script imports nothing of JAX
@@ -71,6 +89,12 @@ FRAMES = 60  # main-path frames, 752x480 stereo (bench.py's scene)
 N_TAIL = 20  # last frames of the scene run again by the profile phase
 SWEEP_FRAMES = 20  # bench frames per photometric mode in the mode sweep
 STRESS_SECONDS = 36.0  # the stress gate's short run (721 stereo frames)
+STRESS_STAGE_SECONDS = 12.0  # the stage-timed stress run (241 stereo frames)
+STACK_LANES = 4  # images in the stack of the batched-kernel checks
+DISTINCT_FRAMES = 30  # frames of the distinct-lane run
+# Lanes of the batch sweep: bench.py's B=16 and powers of four around it,
+# up to where the card, not the host, sets the batched frame's time.
+SWEEP_BATCHES = (1, 4, 16, 64, 256, 1024)
 # lk_corr_align and lk_corr_align_gain launches per frame for each
 # klt_norm mode (every mode: 4 extract_template, 1 resample_template, no K2,
 # K1 or K3).  A two-surface problem ('none', 'zeromean') is one
@@ -188,22 +212,6 @@ def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def bench_scene(n_frames: int):
-    """The scene ``bench.py`` renders: circle trajectory, 600 wall
-    landmarks, IMU noise 5e-4 / 5e-3, one frame every 10 IMU samples."""
-    import numpy as np
-
-    from msckf_stereo_c_torch.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
-    from msckf_stereo_c_torch.sim.render import render_stereo_sequence
-
-    traj = make_circle_trajectory(duration=max(4.0, n_frames * 0.05 + 2.0))
-    landmarks = make_wall_landmarks(num=600, radius=8.0, seed=1)
-    imu = synthesize_imu(traj, gyro_noise=5e-4, acc_noise=5e-3, seed=0)
-    frame_idx = np.arange(0, traj.t.shape[0], 10)[:n_frames]
-    img0, img1 = render_stereo_sequence(traj, landmarks, frame_idx, r_wall=8.0)
-    return traj, imu, frame_idx, img0, img1
 
 
 def lk_trace(sc, surfaces, iters: int, eps: float, hi: float):
@@ -733,6 +741,11 @@ def count_syncs(fn):
     return sites
 
 
+def package_sites(sites):
+    """The call sites of ``count_syncs`` inside the package."""
+    return {k: v for k, v in sites.items() if k.startswith("msckf_stereo_c_torch/")}
+
+
 def phase_k3(fcfg):
     """``lk_corr_align_gain`` and the loop-only K3 within K1_TOL of their
     plain versions on inputs cut from two frames of the stress scene
@@ -881,6 +894,7 @@ def phase_stress(card):
     from msckf_stereo_c_torch.config import FilterConfig, FrontendConfig
     from msckf_stereo_c_torch.ops import _cuda
     from msckf_stereo_c_torch.sim import render_torch, stress
+    from msckf_stereo_c_torch.sim.trajectory import make_stress_trajectory
 
     kw = dict(fcfg=FrontendConfig(klt_norm="gain"),
               mcfg=FilterConfig(ns_iters=10, matmul_precision="tensorfloat32"), method="schur", seed=0)
@@ -928,16 +942,17 @@ def phase_stress(card):
     check(gate.min_tracks_after_ransac > 3, f"stress min tracks {gate.min_tracks_after_ransac} (bar > 3)")
     check(tracks.mean() > 30, f"stress mean tracks {tracks.mean()} (bar > 30)")
 
-    # One more run, each stage timed and every synchronising call counted;
-    # only the package's call sites count (the stage timer's own
-    # synchronise calls are not the program's).
+    # The first STRESS_STAGE_SECONDS once more, each stage timed and every
+    # synchronising call counted; only the package's call sites count (the
+    # stage timer's own synchronise calls are not the program's).
+    n_stage = len(np.arange(0, make_stress_trajectory(duration=STRESS_STAGE_SECONDS).t.shape[0], 10))
     stages = []
     sites = count_syncs(lambda: stages.append(phase_stages(
-        lambda: stress.run_stress_gate(duration=STRESS_SECONDS, **kw), T, tag="stress stages")))
-    sites = {k: v for k, v in sites.items() if k.startswith("msckf_stereo_c_torch/")}
-    out.update(stages=stages[0], syncs_per_frame=sum(sites.values()) / T,
-               sync_sites={k: v / T for k, v in sorted(sites.items(), key=lambda kv: -kv[1])})
-    print(f"[stress] host syncs per frame: {out['syncs_per_frame']:.2f} over the {T} frames "
+        lambda: stress.run_stress_gate(duration=STRESS_STAGE_SECONDS, **kw), n_stage, tag="stress stages")))
+    sites = package_sites(sites)
+    out.update(stages=stages[0], stage_frames=n_stage, syncs_per_frame=sum(sites.values()) / n_stage,
+               sync_sites={k: v / n_stage for k, v in sorted(sites.items(), key=lambda kv: -kv[1])})
+    print(f"[stress] host syncs per frame: {out['syncs_per_frame']:.2f} over the first {n_stage} frames "
           f"(torch sync debug mode, the stage-timed run), by call site:")
     for site, per_frame in list(out["sync_sites"].items())[:4]:
         print(f"[stress]   {per_frame:.2f}/frame at {site}")
@@ -947,8 +962,8 @@ def phase_stress(card):
 def _resume_split(traj, imu, frame_idx, img0, img1, fcfg, mcfg, n_tail):
     """Runs all but the last ``n_tail`` frames and returns a function that
     runs those last frames from the state they leave (the tracker and the
-    filter then in steady state, the camera window full); the head runs
-    once, the tail as often as it is called."""
+    filter then in steady state, the camera window full), and that state;
+    the head runs once, the tail as often as it is called."""
     import torch
 
     from msckf_stereo_c_torch.config import EUROC_CALIB
@@ -965,7 +980,7 @@ def _resume_split(traj, imu, frame_idx, img0, img1, fcfg, mcfg, n_tail):
                          imu.acc, state=head.final_state, prev_frame_t=float(frame_t[k0 - 1]), **kw)
         torch.cuda.synchronize()
 
-    return tail
+    return tail, head.final_state
 
 
 def phase_profile(tail, n_tail, out_dir):
@@ -1014,14 +1029,14 @@ STAGES = (
     ("msckf_stereo_c_torch.models.frontend", "_allocate_new_features", "frontend: allocate"),
     ("msckf_stereo_c_torch.models.frontend", "_prune_grid_features", "frontend: prune"),
     ("msckf_stereo_c_torch.models.frontend", "_publish", "frontend: publish"),
-    ("msckf_stereo_c_torch.models.msckf", "propagate", "filter: propagate"),
+    ("msckf_stereo_c_torch.models.msckf", "batched_propagate", "filter: propagate"),
     ("msckf_stereo_c_torch.models.msckf", "augment_state", "filter: augment"),
     ("msckf_stereo_c_torch.models.msckf", "add_feature_observations", "filter: observe"),
     ("msckf_stereo_c_torch.models.msckf", "_remove_lost_features", "filter: lost-track update"),
     ("msckf_stereo_c_torch.models.msckf", "_prune_cam_states", "filter: camera prune"),
     ("msckf_stereo_c_torch.models.msckf", "_online_reset", "filter: online reset"),
     ("msckf_stereo_c_torch.models.vio", "_run_frontend", "frontend total"),
-    ("msckf_stereo_c_torch.models.vio", "filter_step", "filter total"),
+    ("msckf_stereo_c_torch.models.vio", "batched_filter_step", "filter total"),
 )
 
 
@@ -1067,6 +1082,309 @@ def phase_stages(tail, n_tail, tag="stages"):
     return out
 
 
+def phase_stack_kernels(img0, fcfg):
+    """The four kernels of the main path on a (STACK_LANES, H, W) stack of
+    level-0 images of distinct moving frames, every feature naming its
+    image with the int32 index a batched frame gives (``lane_index``): 36
+    FAST corners per image (N = 144).  Each against its plain version with
+    the tolerances of the single-image checks (``extract_template``
+    bit-exact, ``resample_template`` within 2e-6 x max, both LK kernels
+    within K1_TOL with equal valid masks), and against one launch per image
+    (bit-equal)."""
+    import torch
+
+    from msckf_stereo_c_torch.config import matmul_precision_scope
+    from msckf_stereo_c_torch.models.frontend import pyramids_for
+    from msckf_stereo_c_torch.ops import klt_corr as kc
+    from msckf_stereo_c_torch.utils.lanes import lane_index
+
+    dev = torch.device("cuda")
+    B, n = STACK_LANES, 36
+    P, iters, eps = fcfg.patch_size, fcfg.max_iteration, fcfg.track_precision
+    frames = [FRAMES - 2 - 4 * b for b in range(B)]
+    stack_a = torch.stack([pyramids_for(torch.as_tensor(img0[f], device=dev), fcfg)[0] for f in frames])
+    stack_b = torch.stack([pyramids_for(torch.as_tensor(img0[f + 1], device=dev), fcfg)[0] for f in frames])
+    H, W = stack_a.shape[1:]
+    pts = torch.cat([_best_corners(stack_a[b], fcfg, n) for b in range(B)]).contiguous()
+    idx = lane_index(B, n, dev)
+    S = min(P + 2 * kc._SEARCH_RADIUS + 2, H, W)
+    Sb, hi, c_off = S + 2, float(S - P - 1), (P - 1) / 2.0
+    r = P // 2 + 1
+    rows = []
+
+    def per_lane(fn, imgs, *per_feature):
+        """One launch per image on its own features, concatenated."""
+        return torch.cat([fn(imgs[b], *(x[b * n:(b + 1) * n] for x in per_feature)) for b in range(B)])
+
+    def record(name, err, tol):
+        torch.cuda.synchronize()
+        rows.append(dict(name=name, B=B, N=B * n, max_abs_err=err, tol=tol, per_lane_equal=True))
+        print(f"[stack] {name} on a {B}x{H}x{W} stack, N={B * n} with an image index: within {err:.3g} of its "
+              f"plain version (tol {tol}), equal to {B} per-image launches")
+
+    sp = kc.extract_template(stack_a, pts, P, idx)
+    want = kc.extract_template_reference(stack_a, pts, P, idx)
+    check(torch.equal(sp, want), "extract_template on the stack differs from its plain version")
+    check(torch.equal(sp, per_lane(lambda im, p: kc.extract_template(im, p, P), stack_a, pts)),
+          "extract_template on the stack differs from per-image launches")
+    record("extract_template", 0.0, 0.0)
+
+    with matmul_precision_scope(fcfg.matmul_precision):
+        sorg = kc._clip_xy(torch.floor(pts) - S // 2, 0.0, W - S, H - S)
+        org = sorg.to(torch.int32)
+        f0 = pts - c_off - sorg
+        for norm, name, fn, ref, make_sc in (
+            ("none", "lk_corr_align", kc.lk_corr_align, kc.lk_corr_align_reference, kc._k1_sc),
+            ("gain", "lk_corr_align_gain", kc.lk_corr_align_gain, kc.lk_corr_align_gain_reference, kc._k3_sc),
+        ):
+            tq = kc._template_quantities(sp, P, norm)
+            filters = kc._filters_for_norm(tq, P, norm)
+            sc = make_sc(tq, f0, ~tq.good)
+            got = fn(stack_b, org, S, *filters, sc, iters, eps, hi, idx)
+            want = ref(stack_b, org, S, *filters, sc, iters, eps, hi, idx)
+            lanes = per_lane(lambda im, o, *rest: fn(im, o, S, *rest, iters, eps, hi), stack_b, org, *filters, sc)
+            check(torch.equal(got, lanes), f"{name} on the stack differs from per-image launches")
+            pw, pg = want + c_off + sorg, got + c_off + sorg
+
+            def ok_mask(p):
+                return tq.good & (p[:, 0] >= r) & (p[:, 0] < W - r) & (p[:, 1] >= r) & (p[:, 1] < H - r)
+
+            border = torch.stack([pw[:, 0] - r, (W - r) - pw[:, 0], pw[:, 1] - r, (H - r) - pw[:, 1]], -1)
+            near = border.abs().min(-1).values < K1_TOL
+            check(torch.equal(ok_mask(pg)[~near], ok_mask(pw)[~near]), f"{name} valid mask differs on the stack")
+            m = ok_mask(pw)
+            err = float((got - want)[m].abs().max()) if bool(m.any()) else 0.0
+            check(err <= K1_TOL, f"{name} on the stack differs by {err} px (> {K1_TOL})")
+            record(name, err, K1_TOL)
+            if norm == "none":
+                pts1 = pg
+
+        o1 = kc._clip_xy(torch.floor(pts1) - S // 2 - 1, 0.0, W - Sb, H - Sb).to(torch.int32)
+        got = kc.resample_template(stack_b, pts1, o1, Sb, P, idx)
+        want = kc.resample_template_reference(stack_b, pts1, o1, Sb, P, idx)
+    check(torch.equal(got, per_lane(lambda im, p, o: kc.resample_template(im, p, o, Sb, P), stack_b, pts1, o1)),
+          "resample_template on the stack differs from per-image launches")
+    vmax = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(err <= 2e-6 * vmax, f"resample_template on the stack differs by {err} (> 2e-6 x {vmax})")
+    record("resample_template", err, 2e-6 * vmax)
+    return rows
+
+
+def _ate(t, est, gt):
+    from msckf_stereo_c_torch.io.tum import evaluate_ate
+
+    return float(evaluate_ate(t, est, t, gt).rmse)
+
+
+def phase_distinct_lanes(scene, fcfg, mcfg, card):
+    """STACK_LANES distinct sequences of the bench scene stepped together:
+    lane b starts 60 b IMU samples (0.3 b s) after the spin-up begins, its
+    frames rendered on the card (nominal, no stress channel).  One batched
+    run over DISTINCT_FRAMES frames with the launch counts zeroed just
+    before and read just after (7 / 4 / 1 per batched frame), then each
+    lane alone: feature ids and validity equal on the first 10 frames, each
+    lane's ATE within 2e-4 m of its one-lane run (the first frame where a
+    lane's ids part from its one-lane run is recorded)."""
+    import numpy as np
+    import torch
+
+    from msckf_stereo_c_torch.config import EUROC_CALIB
+    from msckf_stereo_c_torch.models.frontend import make_frontend_params
+    from msckf_stereo_c_torch.models.msckf import make_params
+    from msckf_stereo_c_torch.models.runner import pack_imu_batches
+    from msckf_stereo_c_torch.ops import _cuda
+    from msckf_stereo_c_torch.parallel.vio_multiseq import (
+        batched_gravity_init, batched_init_vio_state, run_vio_batch)
+    from msckf_stereo_c_torch.sim.render_torch import TorchRenderer
+    from msckf_stereo_c_torch.utils.lanes import map_tree
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    B, T = STACK_LANES, DISTINCT_FRAMES
+    traj, imu = scene.traj, scene.imu
+    idx = [300 + 60 * b + 10 * np.arange(T) for b in range(B)]
+    renderer = TorchRenderer(scene.landmarks, r_wall=8.0, device=dev)
+    rendered = [renderer.render_sequence(traj, i) for i in idx]
+    imgs0 = torch.stack([x[0] for x in rendered])
+    imgs1 = torch.stack([x[1] for x in rendered])
+    times = np.stack([traj.t[i] for i in idx])
+    batches = pack_imu_batches(imu.t, imu.gyro, imu.acc, times, mcfg.max_imu_per_frame, np.float32, device=dev)
+    fparams = make_frontend_params(EUROC_CALIB, f32, dev)
+    mparams = make_params(mcfg, EUROC_CALIB, f32, dev)
+    states = batched_init_vio_state(fcfg, mcfg, EUROC_CALIB, imgs0.shape[-2:], B, f32, f32, dev)
+    states = batched_gravity_init(states, imu.gyro[:200], imu.acc[:200])
+
+    def run(sl):
+        return run_vio_batch(map_tree(lambda x: x[sl], states), imgs0[sl], imgs1[sl], times[sl],
+                             map_tree(lambda x: x[sl], batches), fparams, mparams, fcfg, mcfg, "schur", device=dev)
+
+    run(slice(0, B))  # warm-up: first-call set-up at these shapes
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, poses, fronts, _ = run(slice(0, B))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    want = dict(COMMON_LAUNCHES, lk_corr_align=7, lk_corr_align_gain=0)
+    check(counts == {k: v * T for k, v in want.items()},
+          f"distinct lanes: launches {counts}, expected per batched frame {want}")
+    est = poses.p.cpu().numpy()
+    check(bool(np.isfinite(est).all()), "non-finite poses in the distinct-lane run")
+    fid, valid = fronts.fid.cpu().numpy(), fronts.valid.cpu().numpy()
+    lanes = []
+    t1 = time.perf_counter()
+    for b in range(B):
+        _, p1, f1, _ = run(slice(b, b + 1))
+        f1_fid, f1_valid = f1.fid[0].cpu().numpy(), f1.valid[0].cpu().numpy()
+        same = (fid[b] == f1_fid).all(-1) & (valid[b] == f1_valid).all(-1)
+        parts = int(np.argmin(same)) if not same.all() else None
+        gt = traj.p[idx[b]]
+        ate_b, ate_1 = _ate(times[b], est[b], gt), _ate(times[b], p1.p[0].cpu().numpy(), gt)
+        tracks = fronts.after_ransac[b].cpu().numpy()
+        lanes.append(dict(lane=b, first_sample=int(idx[b][0]), ate_batched_m=ate_b, ate_alone_m=ate_1,
+                          first_frame_ids_part=parts, tracks_per_frame_mean=float(tracks.mean())))
+        print(f"[lanes] lane {b} (from IMU sample {idx[b][0]}): ATE {ate_b:.6f} m batched, {ate_1:.6f} m alone; "
+              f"ids and validity {'equal on every frame' if parts is None else f'part at frame {parts}'}; "
+              f"{tracks.mean():.1f} tracks/frame")
+        check(parts is None or parts >= 10, f"lane {b}: ids or validity differ from its one-lane run at frame {parts}")
+        check(abs(ate_b - ate_1) <= 2e-4, f"lane {b}: batched ATE {ate_b} m vs {ate_1} m alone (> 2e-4 m apart)")
+    alone = time.perf_counter() - t1
+    out = dict(lanes=B, frames=T, seconds=secs, fps=B * T / secs, seconds_one_lane_runs=alone,
+               launches=counts, per_lane=lanes)
+    print(f"[lanes] {B} distinct lanes x {T} frames in {secs:.3f} s ({B * T / secs:.2f} frames/s aggregate) "
+          f"against {alone:.3f} s for the {B} one-lane runs, on {card}; launches per batched frame "
+          f"{ {k: v // T for k, v in counts.items()} }")
+    return out
+
+
+def phase_batch_sweep(scene, head_state, fcfg, mcfg, card, out_dir):
+    """bench.py's semantics at each B of SWEEP_BATCHES: the state the first
+    FRAMES - N_TAIL bench frames leave, broadcast to B identical lanes;
+    images and IMU of the last N_TAIL frames shared by every lane.  After a
+    two-frame warm-up at that B, one timed run (aggregate frames/s, peak
+    device memory, launches per batched frame, lane ATEs), then one run
+    under torch.profiler with every host sync counted (device busy share,
+    device ops and host syncs per batched frame)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from msckf_stereo_c_torch.config import EUROC_CALIB
+    from msckf_stereo_c_torch.models.frontend import make_frontend_params
+    from msckf_stereo_c_torch.models.msckf import make_params
+    from msckf_stereo_c_torch.models.runner import pack_imu_batches
+    from msckf_stereo_c_torch.ops import _cuda
+    from msckf_stereo_c_torch.parallel.vio_multiseq import broadcast_state, run_vio_batch
+    from msckf_stereo_c_torch.utils.lanes import map_tree
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    k0, T = FRAMES - N_TAIL, N_TAIL
+    frame_t = scene.frame_t
+    t_tail, gt = frame_t[k0:], scene.traj.p[scene.frame_idx[k0:]]
+    imgs0 = torch.as_tensor(scene.img0[k0:], dtype=f32).to(dev)
+    imgs1 = torch.as_tensor(scene.img1[k0:], dtype=f32).to(dev)
+    batches = pack_imu_batches(scene.imu.t, scene.imu.gyro, scene.imu.acc, t_tail, mcfg.max_imu_per_frame,
+                               np.float32, prev_frame_t=float(frame_t[k0 - 1]), device=dev)
+    fparams = make_frontend_params(EUROC_CALIB, f32, dev)
+    mparams = make_params(mcfg, EUROC_CALIB, f32, dev)
+    want = dict(COMMON_LAUNCHES, lk_corr_align=7, lk_corr_align_gain=0)
+    rows = []
+    for B in SWEEP_BATCHES:
+        states = broadcast_state(head_state, B)
+        times = torch.as_tensor(t_tail, dtype=f32).to(dev).expand(B, T)
+        imu = map_tree(lambda x: x.expand(B, *x.shape), batches)
+
+        def run(n=T):
+            return run_vio_batch(states, imgs0[:n], imgs1[:n], times[:, :n], map_tree(lambda x: x[:, :n], imu),
+                                 fparams, mparams, fcfg, mcfg, "schur", device=dev)
+
+        run(2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, poses, _, _ = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_cuda.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(counts == {k: v * T for k, v in want.items()},
+              f"batch sweep B={B}: launches {counts}, expected per batched frame {want}")
+        est = poses.p.cpu().numpy()
+        check(bool(np.isfinite(est).all()), f"batch sweep B={B}: non-finite poses")
+        ates = np.array([_ate(t_tail, e, gt) for e in est])
+
+        prof_wall = []
+
+        def profiled():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                prof_wall.append(time.perf_counter() - t1)
+            prof_wall.append(prof)
+
+        sites = package_sites(count_syncs(profiled))
+        wall, prof = prof_wall
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / T
+        ops = sum(e.count for e in events) / T
+        if B == SWEEP_BATCHES[-1]:
+            with open(os.path.join(out_dir, f"profile_b{B}.txt"), "w") as f:
+                f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40,
+                                                  max_name_column_width=120))
+        row = dict(B=B, frames=T, seconds=secs, fps=B * T / secs, ms_per_batched_frame=secs * 1e3 / T,
+                   profiled_wall_ms_per_frame=wall * 1e3 / T, device_ms_per_frame=dev_ms,
+                   busy_share=dev_ms * T / 1e3 / wall if dev_ms > 0 else None, device_ops_per_frame=ops,
+                   syncs_per_frame=sum(sites.values()) / T, peak_memory_gb=peak,
+                   launches_per_frame={k: v / T for k, v in counts.items()},
+                   ate_lane0_m=float(ates[0]), ate_worst_m=float(ates.max()),
+                   top=[dict(name=e.key, calls_per_frame=e.count / T,
+                             device_ms_per_frame=e.self_device_time_total / 1e3 / T)
+                        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]])
+        rows.append(row)
+        busy = "not measured" if row["busy_share"] is None else f"{100 * row['busy_share']:.1f}%"
+        print(f"[sweep] B={B:3d}: {row['fps']:8.2f} frames/s aggregate ({row['ms_per_batched_frame']:.2f} ms per "
+              f"batched frame); profiled: device {dev_ms:.3f} ms/frame, busy {busy}, {ops:.0f} device ops/frame; "
+              f"{row['syncs_per_frame']:.2f} host syncs/frame; peak {peak:.3f} GB; ATE lane 0 {ates[0]:.6f} m, "
+              f"worst {ates.max():.6f} m; on {card}")
+    by_b = {r["B"]: r for r in rows}
+    if 16 in by_b and 1 in by_b:
+        r1, r16 = by_b[1], by_b[16]
+        check(abs(r16["ate_worst_m"] - r16["ate_lane0_m"]) <= 1e-4,
+              f"B=16: worst lane ATE {r16['ate_worst_m']} m vs lane 0 {r16['ate_lane0_m']} m (> 1e-4 m apart)")
+        check(r16["device_ops_per_frame"] <= 1.25 * r1["device_ops_per_frame"],
+              f"B=16: {r16['device_ops_per_frame']} device ops per frame (> 1.25 x {r1['device_ops_per_frame']})")
+        check(r16["syncs_per_frame"] <= 1.2 * r1["syncs_per_frame"],
+              f"B=16: {r16['syncs_per_frame']} host syncs per frame (> 1.2 x {r1['syncs_per_frame']})")
+    return rows
+
+
+def phase_entry_point(card):
+    """``python -m msckf_stereo_c_torch.bench`` at B=16 over 20 frames in
+    a process of its own: one JSON line with bench.py's four keys."""
+    env = dict(os.environ, BENCH_BATCH="16", BENCH_FRAMES="20", PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "msckf_stereo_c_torch.bench"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(r.returncode == 0, f"msckf_stereo_c_torch.bench exited {r.returncode}: {r.stderr[-2000:]}")
+    lines = r.stdout.strip().splitlines()
+    check(len(lines) == 1, f"msckf_stereo_c_torch.bench printed {len(lines)} lines on stdout")
+    result = json.loads(lines[0])
+    check(set(result) == {"metric", "value", "unit", "vs_baseline"} and result["value"] > 0,
+          f"msckf_stereo_c_torch.bench printed {result}")
+    side = [ln for ln in r.stderr.splitlines() if ln.startswith("# device=")]
+    print(f"[bench] {lines[0]}")
+    print(f"[bench] {side[-1] if side else 'no side-channel line'} ({secs:.1f} s with start-up and rendering)")
+    return dict(result=result, stderr=side[-1] if side else None, seconds=secs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke"),
@@ -1084,29 +1402,44 @@ def main(argv=None) -> int:
         print("torch.cuda.is_available() is false: no result", file=sys.stderr)
         return 1
 
+    from msckf_stereo_c_torch.bench import bench_scene
     from msckf_stereo_c_torch.config import FilterConfig, FrontendConfig
 
     t_start = time.time()
+    phase_seconds = {}
+
+    def timed(label, fn, *fn_args):
+        """``fn(*fn_args)``, its wall time kept under ``label``."""
+        t0 = time.time()
+        out = fn(*fn_args)
+        phase_seconds[label] = time.time() - t0
+        print(f"[phase] {label}: {phase_seconds[label]:.1f} s")
+        return out
+
     card, name = phase_device()
-    build = phase_build()
+    build = timed("build", phase_build)
 
     # The bench configuration (bench.py): FrontendConfig defaults with one
     # temporal level; Schur filter in f32 with 10 Newton-Schulz iterations
     # and the 'tensorfloat32' name, which the port maps to full f32.
     fcfg = FrontendConfig(temporal_levels=1)
     mcfg = FilterConfig(ns_iters=10, matmul_precision="tensorfloat32")
-    t0 = time.time()
-    traj, imu, frame_idx, img0, img1 = bench_scene(FRAMES)
-    print(f"[scene] {FRAMES} stereo frames {img0.shape[2]}x{img0.shape[1]} rendered in {time.time() - t0:.1f} s")
+    scene = timed("scene", bench_scene, FRAMES)
+    traj, imu, frame_idx, img0, img1 = scene.traj, scene.imu, scene.frame_idx, scene.img0, scene.img1
+    print(f"[scene] {FRAMES} stereo frames {img0.shape[2]}x{img0.shape[1]} rendered")
 
-    rows = phase_kernels(img0, img1, fcfg) + phase_k3(fcfg)
-    main_out = phase_main_path(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card)
-    sweep_out = phase_mode_sweep(traj, imu, frame_idx, img0, img1, mcfg)
+    rows = timed("kernels", phase_kernels, img0, img1, fcfg) + timed("kernels, stress inputs", phase_k3, fcfg)
+    stack_rows = timed("kernels on a stack", phase_stack_kernels, img0, fcfg)
+    main_out = timed("main path", phase_main_path, traj, imu, frame_idx, img0, img1, fcfg, mcfg, card)
+    sweep_out = timed("mode sweep", phase_mode_sweep, traj, imu, frame_idx, img0, img1, mcfg)
     os.makedirs(args.out, exist_ok=True)
-    tail = _resume_split(traj, imu, frame_idx, img0, img1, fcfg, mcfg, N_TAIL)
-    prof_out = phase_profile(tail, N_TAIL, args.out)
-    stage_out = phase_stages(tail, N_TAIL)
-    stress_out = phase_stress(card)
+    tail, head_state = timed("head", _resume_split, traj, imu, frame_idx, img0, img1, fcfg, mcfg, N_TAIL)
+    prof_out = timed("profile", phase_profile, tail, N_TAIL, args.out)
+    stage_out = timed("stages", phase_stages, tail, N_TAIL)
+    lanes_out = timed("distinct lanes", phase_distinct_lanes, scene, fcfg, mcfg, card)
+    batch_out = timed("batch sweep", phase_batch_sweep, scene, head_state, fcfg, mcfg, card, args.out)
+    entry_out = timed("entry point", phase_entry_point, card)
+    stress_out = timed("stress path", phase_stress, card)
 
     pick = {
         "lk_corr_align": next(r for r in rows if r["name"] == "lk_corr_align" and r["level"] == 0
@@ -1136,9 +1469,10 @@ def main(argv=None) -> int:
         })
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": name, "build_seconds": build["seconds"],
-                   "build_logs": build["logs"], "kernel_rows": rows, "main_path": main_out,
-                   "mode_sweep": sweep_out, "profile": prof_out, "stages": stage_out,
-                   "stress_path": stress_out, "seconds": time.time() - t_start},
+                   "build_logs": build["logs"], "kernel_rows": rows, "stack_kernel_rows": stack_rows,
+                   "main_path": main_out, "mode_sweep": sweep_out, "profile": prof_out, "stages": stage_out,
+                   "distinct_lanes": lanes_out, "batch_sweep": batch_out, "entry_point": entry_out,
+                   "stress_path": stress_out, "phase_seconds": phase_seconds, "seconds": time.time() - t_start},
                   f, indent=1)
     print(f"[done] {time.time() - t_start:.1f} s")
     print(card)

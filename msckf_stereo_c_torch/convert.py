@@ -6,7 +6,8 @@ state (``VioState``).  Both packages use NamedTuples with the same class and
 field names, so a state converts field by field: ``vio_state_from_numpy``
 takes the JAX package's structures as numpy trees (``jax.device_get`` of
 them) and builds the port's, and ``vio_state_to_numpy`` turns the port's
-back into numpy trees of the port's classes.
+back into numpy trees of the port's classes.  Batched states (every array
+with a leading lane axis B) convert the same way.
 """
 from __future__ import annotations
 
@@ -59,13 +60,16 @@ def to_numpy(tree: Any) -> Any:
     return tree.detach().cpu().numpy()
 
 
-def vio_state_from_numpy(state, fparams, mparams, device=None):
+def vio_state_from_numpy(state, fparams=None, mparams=None, device=None):
     """(VioState, FrontendParams, MsckfParams) of the port from the JAX
-    package's, given as numpy trees."""
+    package's, given as numpy trees (``None`` stays ``None``).  A batched
+    state, a tree whose arrays carry a leading lane axis B (``jax.vmap``'s
+    layout), becomes the port's batched state."""
     return from_numpy(state, device), from_numpy(fparams, device), from_numpy(mparams, device)
 
 
 def vio_state_to_numpy(state: VioState, fparams: FrontendParams = None, mparams: MsckfParams = None):
     """Inverse of ``vio_state_from_numpy``: numpy trees of the port's
-    structures (``None`` stays ``None``)."""
+    structures (``None`` stays ``None``), a batched state with its leading
+    lane axis."""
     return to_numpy(state), to_numpy(fparams), to_numpy(mparams)

@@ -10,6 +10,11 @@ allocate, prune, publish.
 The configuration ``bench.py`` runs is ported (corr KLT, template carry,
 fused stereo, RANSAC off) with every photometric norm (``klt_norm``);
 ``check_supported`` raises ``NotImplementedError`` naming any other option.
+
+``batched_frontend_step`` steps B sequences at once: every tensor of the
+state carries a leading lane axis, and each LK or template kernel launches
+once for the features of all lanes.  ``frontend_step`` is its one-lane
+view.
 """
 from __future__ import annotations
 
@@ -28,11 +33,13 @@ from ..ops.klt_corr import (
     stereo_anchor_lr_fused,
 )
 from ..ops.pyramid import build_pyramid, smooth5
+from ..utils.lanes import add_lane_axis, count_into, drop_lane_axis, lane_index, scatter_drop, take
 from ..utils.lie import so3_exp
 
 
 class TrackerState(NamedTuple):
-    """Fixed pool of feature tracks (see the JAX original for each field)."""
+    """Fixed pool of feature tracks (see the JAX original for each field);
+    the shapes are one lane's, a batched state adds a leading B."""
 
     pts0: torch.Tensor  # (N, 2) cam0 pixel positions
     pts1: torch.Tensor  # (N, 2) cam1 pixel positions
@@ -62,6 +69,9 @@ class FrontendParams(NamedTuple):
 
 
 class FrameOutput(NamedTuple):
+    """One frame's measurement set and counters (a leading B when
+    batched)."""
+
     fid: torch.Tensor  # (N,) int32
     uv: torch.Tensor  # (N, 4) normalized stereo observations
     valid: torch.Tensor  # (N,)
@@ -160,58 +170,41 @@ def init_tracker_state(cfg: FrontendConfig, dtype=torch.float32, device=None) ->
     )
 
 
-def _scatter_drop(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
-    """``x.at[idx].set(val, mode="drop")`` for indices in [0, len(x)]:
-    index len(x) lands in a dump row that is sliced off."""
-    pad = torch.cat([x, x[:1]], dim=0)
-    shape = (idx.shape[0],) + x.shape[1:]
-    val = val.to(x.dtype).expand(shape) if torch.is_tensor(val) else x.new_full(shape, val)
-    return pad.index_put((idx.long(),), val)[:-1]
-
-
-def _count_into(idx: torch.Tensor, n: int) -> torch.Tensor:
-    """``zeros(n).at[idx].add(1, mode="drop")`` for indices in [0, n]."""
-    out = torch.zeros(n + 1, dtype=torch.int32, device=idx.device)
-    out.index_add_(0, idx.long(), torch.ones_like(idx, dtype=torch.int32))
-    return out[:n]
-
-
 def _grid_code(pts, img_shape, cfg: FrontendConfig):
     H, W = img_shape
     gh = H // cfg.grid_row
     gw = W // cfg.grid_col
-    row = torch.clamp((pts[:, 1] // gh).to(torch.int64), 0, cfg.grid_row - 1)
-    col = torch.clamp((pts[:, 0] // gw).to(torch.int64), 0, cfg.grid_col - 1)
+    row = torch.clamp((pts[..., 1] // gh).to(torch.int64), 0, cfg.grid_row - 1)
+    col = torch.clamp((pts[..., 0] // gw).to(torch.int64), 0, cfg.grid_col - 1)
     return row * cfg.grid_col + col
 
 
 def _lexsort(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
-    """``jnp.lexsort((minor, major))``: sort by major, then minor, stable."""
-    i1 = torch.argsort(minor, stable=True)
-    i2 = torch.argsort(major[i1], stable=True)
-    return i1[i2]
+    """``jnp.lexsort((minor, major))`` along the last axis: sort by major,
+    then minor, stable."""
+    i1 = torch.argsort(minor, dim=-1, stable=True)
+    i2 = torch.argsort(torch.take_along_dim(major, i1, dim=-1), dim=-1, stable=True)
+    return torch.take_along_dim(i1, i2, dim=-1)
 
 
 def _rank_within_group(group, order_key, valid, num_groups: int):
-    """Rank of each element within its group by ascending ``order_key``;
-    invalid elements get rank n."""
-    n = group.shape[0]
+    """Rank of each element within its group by ascending ``order_key``,
+    per lane of (B, n) inputs; invalid elements get rank n."""
+    n = group.shape[-1]
     g = torch.where(valid, group, torch.full_like(group, num_groups))
     sorted_idx = _lexsort(order_key, g)
-    sorted_g = g[sorted_idx]
-    pos = torch.arange(n, device=group.device)
-    first_pos = torch.searchsorted(
-        sorted_g, torch.arange(num_groups + 1, device=group.device, dtype=sorted_g.dtype)
-    )
-    rank_sorted = pos - first_pos[sorted_g]
-    rank = torch.zeros(n, dtype=torch.int64, device=group.device)
-    rank = rank.index_put((sorted_idx,), rank_sorted)
+    sorted_g = torch.take_along_dim(g, sorted_idx, dim=-1)
+    bounds = torch.arange(num_groups + 1, device=group.device, dtype=sorted_g.dtype)
+    first_pos = torch.searchsorted(sorted_g, bounds.expand(g.shape[:-1] + bounds.shape).contiguous())
+    rank_sorted = torch.arange(n, device=group.device) - torch.take_along_dim(first_pos, sorted_g, dim=-1)
+    rank = torch.zeros_like(sorted_idx).scatter(-1, sorted_idx, rank_sorted)
     return torch.where(valid, rank, torch.full_like(rank, n))
 
 
 def _detect_candidates(pts0, pts_valid, img_top, cfg: FrontendConfig, img_shape):
     """FAST corners away from current tracks, sieved to the per-grid top
-    ``grid_max_feature_num`` and cut to ``cand_budget`` by need."""
+    ``grid_max_feature_num`` and cut to ``cand_budget`` by need, per lane:
+    ``pts0`` (B, N, 2), ``img_top`` (B, H, W)."""
     occupied = occupancy_from_points(pts0, pts_valid, img_shape, cfg.detector_cell)
     corners = detect_grid_corners(img_top, float(cfg.fast_threshold), cfg.detector_cell, occupied)
     G, gmax = cfg.num_grids, cfg.grid_max_feature_num
@@ -219,23 +212,21 @@ def _detect_candidates(pts0, pts_valid, img_top, cfg: FrontendConfig, img_shape)
     rank = _rank_within_group(cand_grid, -corners.score, corners.valid, G)
     C = G * gmax
     slot = torch.where(rank < gmax, cand_grid * gmax + rank, C)
-    dev = pts0.device
-    cand_xy = _scatter_drop(torch.zeros((C, 2), dtype=corners.xy.dtype, device=dev), slot, corners.xy)
-    cand_score = _scatter_drop(
-        torch.zeros((C,), dtype=corners.score.dtype, device=dev), slot, corners.score
-    )
-    cand_valid = _scatter_drop(torch.zeros((C,), dtype=torch.bool, device=dev), slot, corners.valid)
+    B, dev = pts0.shape[0], pts0.device
+    cand_xy = scatter_drop(torch.zeros((B, C, 2), dtype=corners.xy.dtype, device=dev), slot, corners.xy)
+    cand_score = scatter_drop(torch.zeros((B, C), dtype=corners.score.dtype, device=dev), slot, corners.score)
+    cand_valid = scatter_drop(torch.zeros((B, C), dtype=torch.bool, device=dev), slot, corners.valid)
 
-    B = cfg.cand_budget
-    if B and B < C:
-        est_count = _count_into(torch.where(pts_valid, _grid_code(pts0, img_shape, cfg), G), G)
+    budget = cfg.cand_budget
+    if budget and budget < C:
+        est_count = count_into(torch.where(pts_valid, _grid_code(pts0, img_shape, cfg), G), G)
         ar = torch.arange(C, device=dev)
         g_of_slot = ar // gmax
         r_of_slot = ar % gmax
         need = torch.clamp(cfg.grid_min_feature_num - est_count, min=0)
-        need_rank = torch.where(cand_valid, r_of_slot - need[g_of_slot], C)
-        idx = _lexsort(-cand_score, need_rank)[:B]
-        return cand_xy[idx], cand_score[idx], cand_valid[idx]
+        need_rank = torch.where(cand_valid, r_of_slot - need[:, g_of_slot], C)
+        idx = _lexsort(-cand_score, need_rank)[:, :budget]
+        return take(cand_xy, idx), take(cand_score, idx), take(cand_valid, idx)
     return cand_xy, cand_score, cand_valid
 
 
@@ -248,40 +239,50 @@ def _stereo_match_merged(
     """Stereo match of surviving tracks (carried disparity, full resolution)
     and candidates (extrinsic guess, coarse walk at levels 3, 2, 1 first) in
     one fused fine-level call, then the epipolar, cheirality and
-    left-right gates over the union.  Returns the same tuple as the JAX
-    original's fused branch."""
+    left-right gates over the union.  Per lane: ``pts_surv`` (B, N, 2),
+    ``cand_xy`` (B, C, 2), pyramid levels (B, h, w); every LK call takes the
+    B x N survivors and B x C candidates flattened into one feature axis
+    (survivors of every lane first).  Returns the same tuple as the JAX
+    original's fused branch, with a leading lane axis."""
     H, W = img_shape
+    B, N = pts_surv.shape[:2]
+    C = cand_xy.shape[1]
+    dev = pts_surv.device
     norm, anchor_norm = _norms(cfg)
     kw = dict(win=cfg.patch_size, iters=cfg.max_iteration, eps=cfg.track_precision)
+    idx_c = lane_index(B, C, dev)
 
     xn = undistort_points(cand_xy, params.K0, params.D0, model=cfg.distortion_model0, R=params.R_c0_c1)
-    cguess = distort_points(xn, params.K1, params.D1, model=cfg.distortion_model1)
+    cguess = distort_points(xn, params.K1, params.D1, model=cfg.distortion_model1).reshape(B * C, 2)
+    cand_flat, cvalid_flat = cand_xy.reshape(B * C, 2), cand_valid.reshape(B * C)
     s = 4.0  # scale of pyramid level 2
     res_c = optical_flow_pyr_lk_corr(
-        pyr0[2:], pyr1[2:], cand_xy / s, cguess / s, cand_valid, norm=norm, **kw
+        pyr0[2:], pyr1[2:], cand_flat / s, cguess / s, cvalid_flat, norm=norm, img_index=idx_c, **kw
     )
     cguess = res_c.pts * s
     if cfg.cand_level1:
         res_m = optical_flow_pyr_lk_corr(
-            pyr0[1:2], pyr1[1:2], cand_xy / 2.0, cguess / 2.0, cand_valid, norm=norm, **kw
+            pyr0[1:2], pyr1[1:2], cand_flat / 2.0, cguess / 2.0, cvalid_flat, norm=norm,
+            img_index=idx_c, **kw
         )
         cguess = res_m.pts * 2.0
 
-    n_surv = pts_surv.shape[0]
-    pts0 = torch.cat([pts_surv, cand_xy], dim=0)
-    guess = torch.cat([surv_guess, cguess], dim=0)
-    valid = torch.cat([surv_valid, cand_valid], dim=0)
+    n_surv = B * N
+    pts0 = torch.cat([pts_surv.reshape(n_surv, 2), cand_flat], dim=0)
+    guess = torch.cat([surv_guess.reshape(n_surv, 2), cguess], dim=0)
+    valid = torch.cat([surv_valid.reshape(n_surv), cvalid_flat], dim=0)
     pts0, acc, res, rt2, sp_all, me_all = stereo_anchor_lr_fused(
         pyr0[0], pyr1[0], pts0, guess, valid, **kw,
-        anchor_sp=anchor_sp,
-        anchor_valid=surv_valid if anchor_sp is not None else None,
+        anchor_sp=None if anchor_sp is None else anchor_sp.reshape((n_surv,) + anchor_sp.shape[2:]),
+        anchor_valid=surv_valid.reshape(n_surv) if anchor_sp is not None else None,
         anchor_radius=cfg.anchor_radius,
         norm=norm,
         anchor_norm=anchor_norm,
+        img_index=torch.cat([lane_index(B, N, dev), idx_c]),
     )
     n_anchor = (
-        torch.zeros((), dtype=torch.int32, device=pts0.device)
-        if acc is None else torch.sum(acc).to(torch.int32)
+        torch.zeros((B,), dtype=torch.int32, device=dev)
+        if acc is None else torch.sum(acc.reshape(B, N), dim=1).to(torch.int32)
     )
     pts1 = res.pts
     ok = res.valid & valid
@@ -311,12 +312,18 @@ def _stereo_match_merged(
     # Left-right round trip (ran inside the fused call).
     ok = ok & (rt2 <= cfg.stereo_lr_threshold**2)
 
+    def surv(x):
+        return x[:n_surv].reshape((B, N) + x.shape[1:])
+
+    def cand(x):
+        return x[n_surv:].reshape((B, C) + x.shape[1:])
+
     return (
-        (pts0[:n_surv], pts1[:n_surv], ok[:n_surv], depth[:n_surv]),
-        (pts1[n_surv:], ok[n_surv:], depth[n_surv:]),
-        (sp_all[:n_surv], sp_all[n_surv:]),
+        (surv(pts0), surv(pts1), surv(ok), surv(depth)),
+        (cand(pts1), cand(ok), cand(depth)),
+        (surv(sp_all), cand(sp_all)),
         n_anchor,
-        (me_all[:n_surv], me_all[n_surv:]),
+        (surv(me_all), cand(me_all)),
     )
 
 
@@ -325,53 +332,55 @@ def _allocate_new_features(
     cfg: FrontendConfig, img_shape, fill_to: int,
     cand_tmpl, cand_depth, cand_snr,
 ) -> TrackerState:
-    """Fill grids below ``fill_to`` with stereo-matched candidates."""
+    """Fill grids below ``fill_to`` with stereo-matched candidates, per lane
+    (pool (B, N), candidates (B, C))."""
     N = cfg.max_features
     G = cfg.num_grids
     dev = cand_xy.device
+    B = cand_xy.shape[0]
     pool_grid = _grid_code(state.pts0, img_shape, cfg)
-    pool_count = _count_into(
-        torch.where(state.fid >= 0, pool_grid, torch.full_like(pool_grid, G)), G
-    )
+    pool_count = count_into(torch.where(state.fid >= 0, pool_grid, torch.full_like(pool_grid, G)), G)
     vacancy = torch.clamp(fill_to - pool_count, min=0)
 
     cgrid = _grid_code(cand_xy, img_shape, cfg)
     crank = _rank_within_group(cgrid, -cand_score, cand_ok, G)
-    accept = cand_ok & (crank < vacancy[cgrid])
+    accept = cand_ok & (crank < torch.take_along_dim(vacancy, cgrid, dim=1))
 
     free = state.fid < 0
-    free_rank = torch.cumsum(free.to(torch.int64), 0) - 1
-    slot_of_rank = _scatter_drop(
-        torch.full((N,), N, dtype=torch.int64, device=dev),
+    free_rank = torch.cumsum(free.to(torch.int64), 1) - 1
+    slot_of_rank = scatter_drop(
+        torch.full((B, N), N, dtype=torch.int64, device=dev),
         torch.where(free, free_rank, torch.full_like(free_rank, N)),
-        torch.arange(N, device=dev),
+        torch.arange(N, device=dev).expand(B, N),
     )
-    n_free = torch.sum(free)
-    acc_rank = torch.cumsum(accept.to(torch.int64), 0) - 1
+    n_free = torch.sum(free, dim=1, keepdim=True)
+    acc_rank = torch.cumsum(accept.to(torch.int64), 1) - 1
     placed = accept & (acc_rank < n_free)
     target = torch.where(
-        placed, slot_of_rank[torch.clamp(acc_rank, 0, N - 1)], torch.full_like(acc_rank, N)
+        placed, torch.take_along_dim(slot_of_rank, torch.clamp(acc_rank, 0, N - 1), dim=1),
+        torch.full_like(acc_rank, N),
     )
 
-    new_fid = state.next_fid + acc_rank.to(torch.int32)
-    n_added = torch.sum(placed).to(torch.int32)
+    new_fid = state.next_fid[:, None] + acc_rank.to(torch.int32)
+    n_added = torch.sum(placed, dim=1).to(torch.int32)
     return state._replace(
-        pts0=_scatter_drop(state.pts0, target, cand_xy),
-        pts1=_scatter_drop(state.pts1, target, cand_pts1),
-        fid=_scatter_drop(state.fid, target, new_fid),
-        lifetime=_scatter_drop(state.lifetime, target, 1),
-        response=_scatter_drop(state.response, target, cand_score.to(state.response.dtype)),
+        pts0=scatter_drop(state.pts0, target, cand_xy),
+        pts1=scatter_drop(state.pts1, target, cand_pts1),
+        fid=scatter_drop(state.fid, target, new_fid),
+        lifetime=scatter_drop(state.lifetime, target, 1),
+        response=scatter_drop(state.response, target, cand_score.to(state.response.dtype)),
         next_fid=state.next_fid + n_added,
-        tmpl=_scatter_drop(state.tmpl, target, cand_tmpl.to(state.tmpl.dtype)),
-        depth=_scatter_drop(state.depth, target, cand_depth.to(state.depth.dtype)),
+        tmpl=scatter_drop(state.tmpl, target, cand_tmpl.to(state.tmpl.dtype)),
+        depth=scatter_drop(state.depth, target, cand_depth.to(state.depth.dtype)),
         # The candidate's stereo template is its birth appearance: the anchor.
-        anchor=_scatter_drop(state.anchor, target, cand_tmpl.to(state.anchor.dtype)),
-        snr=_scatter_drop(state.snr, target, cand_snr.to(state.snr.dtype)),
+        anchor=scatter_drop(state.anchor, target, cand_tmpl.to(state.anchor.dtype)),
+        snr=scatter_drop(state.snr, target, cand_snr.to(state.snr.dtype)),
     )
 
 
 def _prune_grid_features(state: TrackerState, cfg: FrontendConfig, img_shape) -> TrackerState:
-    """Cap each grid at grid_max_feature_num, keeping the longest-lived."""
+    """Cap each grid of each lane at grid_max_feature_num, keeping the
+    longest-lived."""
     grid = _grid_code(state.pts0, img_shape, cfg)
     rank = _rank_within_group(grid, -state.lifetime, state.fid >= 0, cfg.num_grids)
     keep = rank < cfg.grid_max_feature_num
@@ -382,7 +391,7 @@ def _publish(state: TrackerState, params: FrontendParams, cfg: FrontendConfig, d
     """Undistort to normalized coordinates and emit the measurement set."""
     un0 = undistort_points(state.pts0, params.K0, params.D0, model=cfg.distortion_model0)
     un1 = undistort_points(state.pts1, params.K1, params.D1, model=cfg.distortion_model1)
-    uv = torch.cat([un0, un1], dim=1).to(dtype)
+    uv = torch.cat([un0, un1], dim=-1).to(dtype)
     return state.fid, uv, state.fid >= 0
 
 
@@ -398,10 +407,35 @@ def frontend_step(
     cfg: FrontendConfig,
     cam_vel: torch.Tensor,
 ):
-    """One stereo frame through the tracker.  Returns (state, FrameOutput).
-    ``cam_vel`` is the cam0-frame velocity for the translation-aware
-    temporal prediction."""
-    check_supported(cfg, tuple(pyr0_curr[0].shape))
+    """One stereo frame of one sequence through the tracker: the one-lane
+    view of ``batched_frontend_step``.  Returns (state, FrameOutput)."""
+    state, out = batched_frontend_step(
+        add_lane_axis(state), add_lane_axis(pyr0_prev), add_lane_axis(pyr0_curr),
+        add_lane_axis(pyr1_curr), mean_gyro[None], dt[None], is_first[None], params, cfg,
+        cam_vel[None],
+    )
+    return drop_lane_axis(state), drop_lane_axis(out)
+
+
+def batched_frontend_step(
+    state: TrackerState,
+    pyr0_prev: Sequence[torch.Tensor],
+    pyr0_curr: Sequence[torch.Tensor],
+    pyr1_curr: Sequence[torch.Tensor],
+    mean_gyro: torch.Tensor,
+    dt: torch.Tensor,
+    is_first: torch.Tensor,
+    params: FrontendParams,
+    cfg: FrontendConfig,
+    cam_vel: torch.Tensor,
+):
+    """One stereo frame of B sequences through the tracker: ``state`` with
+    a leading lane axis, pyramid levels (B, h, w) (a broadcast view where
+    the lanes share an image), ``mean_gyro`` (B, 3), ``dt`` (B,),
+    ``is_first`` (B,), ``cam_vel`` (B, 3), the cam0-frame velocity for the
+    translation-aware temporal prediction.  Returns (state, FrameOutput),
+    the counters (B,)."""
+    check_supported(cfg, tuple(pyr0_curr[0].shape[-2:]))
     with matmul_precision_scope(cfg.matmul_precision):
         return _frontend_step_impl(
             state, pyr0_prev, pyr0_curr, pyr1_curr, mean_gyro, dt, is_first,
@@ -412,32 +446,35 @@ def frontend_step(
 def _frontend_step_impl(
     state, pyr0_prev, pyr0_curr, pyr1_curr, mean_gyro, dt, is_first, params, cfg, cam_vel
 ):
-    img_shape = tuple(pyr0_curr[0].shape)
+    img_shape = tuple(pyr0_curr[0].shape[-2:])
     H, W = img_shape
-    before_tracking = torch.sum(state.fid >= 0)
+    B, N = state.fid.shape
+    before_tracking = torch.sum(state.fid >= 0, dim=1)
 
     # --- Temporal tracking with the translation-aware prediction.
-    w_cam = params.R_imu_cam0 @ mean_gyro
-    R_p_c = so3_exp(w_cam * dt).T
+    w_cam = mean_gyro @ params.R_imu_cam0.T
+    R_p_c = so3_exp(w_cam * dt[:, None]).transpose(-1, -2)
     xn = undistort_points(state.pts0, params.K0, params.D0, model=cfg.distortion_model0)
     z0 = torch.where(state.depth > 0.3, state.depth, torch.full_like(state.depth, 1e6))
-    X = torch.cat([xn, torch.ones_like(xn[:, :1])], dim=1) * z0[:, None]
-    Xp = (X - cam_vel * dt) @ R_p_c.T
-    zc = torch.clamp(Xp[:, 2], min=0.3)
-    guess = distort_points(Xp[:, :2] / zc[:, None], params.K0, params.D0, model=cfg.distortion_model0)
+    X = torch.cat([xn, torch.ones_like(xn[..., :1])], dim=-1) * z0[..., None]
+    Xp = (X - cam_vel[:, None, :] * dt[:, None, None]) @ R_p_c.transpose(-1, -2)
+    zc = torch.clamp(Xp[..., 2], min=0.3)
+    guess = distort_points(Xp[..., :2] / zc[..., None], params.K0, params.D0, model=cfg.distortion_model0)
     depth_ratio = torch.clamp(z0 / zc, 0.5, 2.0)
 
     active = state.fid >= 0
     res, _ = optical_flow_lk_corr_l0(
-        pyr0_prev[0], pyr0_curr[0], state.pts0, guess, active,
+        pyr0_prev[0], pyr0_curr[0], state.pts0.reshape(B * N, 2), guess.reshape(B * N, 2),
+        active.reshape(B * N),
         win=cfg.patch_size, iters=cfg.max_iteration, eps=cfg.track_precision,
-        tmpl_sp=state.tmpl, norm=_norms(cfg)[0],
+        tmpl_sp=state.tmpl.reshape((B * N,) + state.tmpl.shape[2:]), norm=_norms(cfg)[0],
+        img_index=lane_index(B, N, state.fid.device),
     )
-    tracked_pts0 = res.pts
-    tracked = active & res.valid
-    tracked = tracked & (tracked_pts0[:, 0] >= 0) & (tracked_pts0[:, 0] <= W - 1)
-    tracked = tracked & (tracked_pts0[:, 1] >= 0) & (tracked_pts0[:, 1] <= H - 1)
-    after_tracking = torch.sum(tracked)
+    tracked_pts0 = res.pts.reshape(B, N, 2)
+    tracked = active & res.valid.reshape(B, N)
+    tracked = tracked & (tracked_pts0[..., 0] >= 0) & (tracked_pts0[..., 0] <= W - 1)
+    tracked = tracked & (tracked_pts0[..., 1] >= 0) & (tracked_pts0[..., 1] <= H - 1)
+    after_tracking = torch.sum(tracked, dim=1)
 
     # --- New-feature candidates away from the tracked features.
     cand_xy, cand_score, cand_valid = _detect_candidates(
@@ -445,7 +482,7 @@ def _frontend_step_impl(
     )
 
     # --- Stereo match with the anchor refinement fused in.
-    disparity_guess = tracked_pts0 + (state.pts1 - state.pts0) * depth_ratio[:, None]
+    disparity_guess = tracked_pts0 + (state.pts1 - state.pts0) * depth_ratio[..., None]
     (
         (tracked_pts0, pts1, matched, surv_depth),
         (cand_pts1, cand_ok, cand_depth),
@@ -456,16 +493,16 @@ def _frontend_step_impl(
         pyr0_curr, pyr1_curr, tracked_pts0, disparity_guess, tracked,
         cand_xy, cand_valid, params, cfg, img_shape, anchor_sp=state.anchor,
     )
-    after_matching = torch.sum(matched)
+    after_matching = torch.sum(matched, dim=1)
 
-    surv = matched & ~is_first
+    surv = matched & ~is_first[:, None]
     state = state._replace(
-        pts0=torch.where(surv[:, None], tracked_pts0, state.pts0),
-        pts1=torch.where(surv[:, None], pts1, state.pts1),
+        pts0=torch.where(surv[..., None], tracked_pts0, state.pts0),
+        pts1=torch.where(surv[..., None], pts1, state.pts1),
         fid=torch.where(surv, state.fid, torch.full_like(state.fid, -1)),
         lifetime=torch.where(surv, state.lifetime + 1, torch.zeros_like(state.lifetime)),
         depth=torch.where(surv, surv_depth, torch.zeros_like(surv_depth)),
-        tmpl=torch.where(surv[:, None, None], surv_tmpl.to(state.tmpl.dtype), state.tmpl),
+        tmpl=torch.where(surv[..., None, None], surv_tmpl.to(state.tmpl.dtype), state.tmpl),
         snr=torch.where(surv, surv_snr.to(state.snr.dtype), torch.zeros_like(state.snr)),
     )
 
@@ -482,7 +519,7 @@ def _frontend_step_impl(
         before_tracking=before_tracking,
         after_tracking=after_tracking,
         after_matching=after_matching,
-        after_ransac=torch.sum(valid),
+        after_ransac=torch.sum(valid, dim=1),
         anchor_accepted=n_anchor,
         quality=state.snr,
     )
@@ -490,9 +527,9 @@ def _frontend_step_impl(
 
 
 def pyramids_for(img: torch.Tensor, cfg: FrontendConfig) -> Tuple[torch.Tensor, ...]:
-    """Image pyramid for the tracker; with cfg.presmooth the full-resolution
-    level is the 5-tap prefiltered image, coarse levels the raw pyrDown
-    chain."""
+    """Image pyramid for the tracker, of an (H, W) image or each image of a
+    (B, H, W) stack; with cfg.presmooth the full-resolution level is the
+    5-tap prefiltered image, coarse levels the raw pyrDown chain."""
     pyr = build_pyramid(img, cfg.pyramid_levels)
     if cfg.presmooth:
         pyr = [smooth5(img)] + pyr[1:]

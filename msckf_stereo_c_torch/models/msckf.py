@@ -3,10 +3,12 @@ msckf.py``, Schur method with Newton-Schulz solves).
 
 propagate -> augment -> observe -> remove lost features (triangulate, gate,
 update) -> prune two camera states when the window is full -> publish ->
-online reset.  Every phase works on fixed-shape masked tensors.  Of JAX's
-two ``lax.cond``s, the online reset is computed and merged with
-``torch.where``; the prune branches in Python on one host read per frame,
-since it costs a triangulation and an update.
+online reset.  Every phase works on fixed-shape masked tensors with a
+leading sequence lane axis B (``batched_filter_step``; ``filter_step`` is
+its one-lane view).  Of JAX's two ``lax.cond``s, the online reset is
+computed and merged with ``torch.where``; the prune branches in Python on
+one host read per frame for all lanes, since it costs a triangulation and
+an update, and is merged per lane with ``torch.where``.
 """
 from __future__ import annotations
 
@@ -17,9 +19,10 @@ import torch
 
 from ..config import FilterConfig, StereoCalib, matmul_precision_scope
 from ..utils.chi2 import chi2_p95_table
+from ..utils.lanes import add_lane_axis, at_slot, drop_lane_axis, take, where_lanes
 from ..utils.quaternion import jpl_to_rot, rot_to_jpl
 from .augmentation import add_feature_observations, augment_state
-from .propagation import ImuBatch, propagate
+from .propagation import ImuBatch, batched_propagate
 from .pruning import compact_after_removal, find_redundant_cam_slots
 from .state import FilterState, continuous_noise_cov, initial_cov_diag
 from .triangulation import check_motion_tracks, triangulate_tracks
@@ -34,7 +37,7 @@ from .update import (
 
 
 class FrameFeatures(NamedTuple):
-    """Per-frame output of the frontend."""
+    """Per-frame output of the frontend (a leading B when batched)."""
 
     time: torch.Tensor  # ()
     fid: torch.Tensor  # (F,) int32
@@ -61,6 +64,8 @@ class MsckfParams(NamedTuple):
 
 
 class PoseOutput(NamedTuple):
+    """One frame's published pose (a leading B when batched)."""
+
     time: torch.Tensor
     p: torch.Tensor  # (3,) body position in world
     q_xyzw: torch.Tensor  # (4,) Hamilton body->world quaternion
@@ -112,13 +117,14 @@ def _snr_weights(quality: torch.Tensor, obs_mask: torch.Tensor, cfg: FilterConfi
     """Per-track EKF weight w = sigma2_base / sigma2_track of the
     SNR-adaptive observation noise (FilterConfig.noise_adaptive).
 
-    ``quality`` (Kc, Ms) per-observation template min-eig (0 = unknown),
-    ``obs_mask`` the observations that belong to the track.  The track's
-    noise variance inflates by clip(ref / mean quality, 1, cap); a track of
-    unknown quality keeps the base noise.  Returns (Kc,) weights in (0, 1]."""
+    ``quality`` (..., Kc, Ms) per-observation template min-eig (0 =
+    unknown), ``obs_mask`` the observations that belong to the track.  The
+    track's noise variance inflates by clip(ref / mean quality, 1, cap); a
+    track of unknown quality keeps the base noise.  Returns (..., Kc)
+    weights in (0, 1]."""
     q = torch.where(obs_mask & (quality > 0), quality, torch.zeros_like(quality))
-    cnt = torch.sum(q > 0, dim=1)
-    qmean = torch.sum(q, dim=1) / torch.clamp(cnt, min=1).to(q.dtype)
+    cnt = torch.sum(q > 0, dim=-1)
+    qmean = torch.sum(q, dim=-1) / torch.clamp(cnt, min=1).to(q.dtype)
     infl = torch.where(
         qmean > 0,
         torch.clamp(cfg.noise_snr_ref / torch.clamp(qmean, min=1e-12), 1.0, cfg.noise_inflation_cap),
@@ -131,24 +137,24 @@ def _gate_and_update(
     state: FilterState, params: MsckfParams, pos, obs, obs_mask, use, dof,
     cam_idx=None, ns_iters: int = 10, w=None,
 ) -> FilterState:
-    """Chi-square gate and Schur EKF update over the selected tracks;
-    ``cam_idx`` runs the whole gate and update camera-compacted.  ``w``
-    (K,), from ``_snr_weights``, scales each track's Jacobian blocks and
-    residuals by sqrt(w), which makes the base-noise formulas the
-    per-track-noise gate and update exactly."""
+    """Chi-square gate and Schur EKF update over the selected tracks of each
+    lane (B, K); ``cam_idx`` (B, Mc) runs the whole gate and update
+    camera-compacted.  ``w`` (B, K), from ``_snr_weights``, scales each
+    track's Jacobian blocks and residuals by sqrt(w), which makes the
+    base-noise formulas the per-track-noise gate and update exactly."""
     cams = state.cams
     if cam_idx is not None:
         cams = cams._replace(
-            q=cams.q[cam_idx], p=cams.p[cam_idx],
-            q_null=cams.q_null[cam_idx], p_null=cams.p_null[cam_idx],
+            q=take(cams.q, cam_idx), p=take(cams.p, cam_idx),
+            q_null=take(cams.q_null, cam_idx), p_null=take(cams.p_null, cam_idx),
         )
     blocks = track_blocks(pos, obs, obs_mask, cams, state.gravity, params.R_c0_c1, params.t_c0_c1)
     if w is not None:
         sw = torch.sqrt(w).to(blocks.H_x.dtype)
         blocks = blocks._replace(
-            H_x=blocks.H_x * sw[:, None, None, None],
-            H_f=blocks.H_f * sw[:, None, None, None],
-            r=blocks.r * sw[:, None, None],
+            H_x=blocks.H_x * sw[..., None, None, None],
+            H_f=blocks.H_f * sw[..., None, None, None],
+            r=blocks.r * sw[..., None, None],
         )
     if cam_idx is not None:
         Pc = cam_cov_blocks(state.P, cam_idx)
@@ -161,47 +167,48 @@ def _gate_and_update(
 
 
 def _compact_candidates(candidates: torch.Tensor, max_update: int) -> torch.Tensor:
-    """Stable indices of at most ``max_update`` candidates, selected first."""
-    K = candidates.shape[0]
+    """Per lane, stable indices (B, Kc) of at most ``max_update``
+    candidates, selected first."""
+    B, K = candidates.shape
     if not max_update or max_update >= K:
-        return torch.arange(K, device=candidates.device)
-    return torch.argsort((~candidates).to(torch.int8), stable=True)[:max_update]
+        return torch.arange(K, device=candidates.device).expand(B, K)
+    return torch.argsort((~candidates).to(torch.int8), dim=1, stable=True)[:, :max_update]
 
 
-def _triangulated(state: FilterState, params: MsckfParams, idx):
-    """Motion check and triangulation of the compacted tracks ``idx``;
+def _triangulated(state: FilterState, params: MsckfParams, idx, active=None):
+    """Motion check and triangulation of each lane's compacted tracks
+    ``idx`` (B, Kc) (LM steps only in the lanes ``active``, all when None);
     initialized tracks keep their stored position."""
     tracks = state.tracks
-    obs_c = tracks.obs[idx]
-    obs_valid_c = tracks.obs_valid[idx]
-    initialized_c = tracks.initialized[idx]
+    obs_c = take(tracks.obs, idx)
+    obs_valid_c = take(tracks.obs_valid, idx)
+    initialized_c = take(tracks.initialized, idx)
     motion_ok = check_motion_tracks(
         obs_c, obs_valid_c, state.cams.q, state.cams.p, params.feature_translation_threshold
     )
     tri = triangulate_tracks(
-        obs_c, obs_valid_c, state.cams.q, state.cams.p, params.R_c0_c1, params.t_c0_c1
+        obs_c, obs_valid_c, state.cams.q, state.cams.p, params.R_c0_c1, params.t_c0_c1, active
     )
     init_ok = torch.where(initialized_c, True, motion_ok & tri.valid)
-    pos = torch.where(initialized_c[:, None], tracks.pos[idx], tri.pos_w)
+    pos = torch.where(initialized_c[..., None], take(tracks.pos, idx), tri.pos_w)
     return obs_c, obs_valid_c, initialized_c, motion_ok & tri.valid, init_ok, pos
 
 
 def _lost_candidates(state: FilterState, params: MsckfParams, max_update: int = 0):
     """Select and triangulate the tracks that lost tracking this frame."""
     tracks = state.tracks
-    M = tracks.obs_valid.shape[1]
     active = tracks.fid >= 0
-    newest = torch.clamp(state.num_cams.long() - 1, min=0).reshape(1)
-    observed_now = tracks.obs_valid.index_select(1, newest)[:, 0] & (state.num_cams > 0)
+    newest = torch.clamp(state.num_cams.long() - 1, min=0)
+    observed_now = at_slot(tracks.obs_valid, newest, dim=2) & (state.num_cams > 0)[:, None]
     lost = active & ~observed_now
-    n_obs = torch.sum(tracks.obs_valid, dim=1)
+    n_obs = torch.sum(tracks.obs_valid, dim=2)
     drop_only = lost & (n_obs < 3)
     candidates = lost & (n_obs >= 3)
 
     idx = _compact_candidates(candidates, max_update)
     obs_c, obs_valid_c, _, _, init_ok, pos = _triangulated(state, params, idx)
-    use = candidates[idx] & init_ok
-    dof = torch.clamp(n_obs[idx] - 1, 1, 99)
+    use = take(candidates, idx) & init_ok
+    dof = torch.clamp(take(n_obs, idx) - 1, 1, 99)
     return idx, obs_c, obs_valid_c, use, dof, pos, drop_only, candidates
 
 
@@ -211,57 +218,61 @@ def _remove_lost_features(state: FilterState, params: MsckfParams, cfg: FilterCo
     idx, obs_c, obs_valid_c, use, dof, pos, drop_only, candidates = _lost_candidates(
         state, params, cfg.max_update_tracks
     )
-    w = _snr_weights(state.tracks.quality[idx], obs_valid_c, cfg) if cfg.noise_adaptive else None
+    w = _snr_weights(take(state.tracks.quality, idx), obs_valid_c, cfg) if cfg.noise_adaptive else None
     state = _gate_and_update(
-        state, params, pos, obs_c, obs_valid_c & use[:, None], use, dof, ns_iters=cfg.ns_iters, w=w
+        state, params, pos, obs_c, obs_valid_c & use[..., None], use, dof, ns_iters=cfg.ns_iters, w=w
     )
     gone = drop_only | candidates
     tracks = state.tracks._replace(
         fid=torch.where(gone, -1, state.tracks.fid),
-        obs_valid=state.tracks.obs_valid & ~gone[:, None],
+        obs_valid=state.tracks.obs_valid & ~gone[..., None],
         initialized=state.tracks.initialized & ~gone,
     )
     return state._replace(tracks=tracks)
 
 
-def _prune_cam_states(state: FilterState, params: MsckfParams, cfg: FilterConfig) -> FilterState:
-    """Marginalize two redundant camera states (reference
+def _prune_cam_states(state: FilterState, params: MsckfParams, cfg: FilterConfig, lanes=None) -> FilterState:
+    """Marginalize two redundant camera states per lane (reference
     pruneCamStateBuffer), gate and update camera-compacted to the two
-    slots."""
+    slots.  ``lanes`` (B,) names the lanes whose result is kept (the LM
+    steps run only there; all lanes when None)."""
     tracks = state.tracks
-    K, M = tracks.obs_valid.shape
+    M = tracks.obs_valid.shape[2]
     dev = state.P.device
     slot_a, slot_b = find_redundant_cam_slots(
         state, params.rotation_threshold, params.translation_threshold,
         params.tracking_rate_threshold,
     )
-    cam_idx = torch.stack([slot_a, slot_b])
-    involved = tracks.obs_valid[:, cam_idx].to(torch.int32).sum(dim=1)
+    cam_idx = torch.stack([slot_a, slot_b], dim=1)  # (B, 2)
+    involved = torch.take_along_dim(tracks.obs_valid, cam_idx[:, None, :], dim=2).to(torch.int32).sum(dim=2)
     ar = torch.arange(M, device=dev)[None, :]
-    involved_mask = ((ar == slot_a) | (ar == slot_b)) & tracks.obs_valid
+    pair = (ar == slot_a[:, None]) | (ar == slot_b[:, None])  # (B, M)
+    involved_mask = pair[:, None, :] & tracks.obs_valid
 
     update_cand = (tracks.fid >= 0) & (involved >= 2)
     idx = _compact_candidates(update_cand, cfg.max_update_tracks)
-    obs_k, _, initialized_k, tri_ok, init_ok, pos = _triangulated(state, params, idx)
-    cand_k = update_cand[idx]
+    obs_k, _, initialized_k, tri_ok, init_ok, pos = _triangulated(state, params, idx, lanes)
+    cand_k = take(update_cand, idx)
     newly_init = cand_k & ~initialized_k & tri_ok
     use = cand_k & init_ok
-    dof = torch.clamp(involved[idx], 1, 99)
-    mask_c = (involved_mask[idx] & use[:, None])[:, cam_idx]
+    dof = torch.clamp(take(involved, idx), 1, 99)
+    mask_k = take(involved_mask, idx)
+    mask_c = torch.take_along_dim(mask_k & use[..., None], cam_idx[:, None, :], dim=2)
+    obs_c = torch.take_along_dim(obs_k, cam_idx[:, None, :, None], dim=2)
     # The weight comes from the observations this update consumes (the two
     # pruned slots).
-    w = _snr_weights(tracks.quality[idx], involved_mask[idx], cfg) if cfg.noise_adaptive else None
+    w = _snr_weights(take(tracks.quality, idx), mask_k, cfg) if cfg.noise_adaptive else None
     state = _gate_and_update(
-        state, params, pos, obs_k[:, cam_idx], mask_c, use, dof,
-        cam_idx=cam_idx, ns_iters=cfg.ns_iters, w=w,
+        state, params, pos, obs_c, mask_c, use, dof, cam_idx=cam_idx, ns_iters=cfg.ns_iters, w=w,
     )
 
     # Persist positions of tracks initialized here; delete the involved
     # observations from every track.
     t = state.tracks
+    new_pos = torch.where(newly_init[..., None], pos, take(t.pos, idx))
     tracks = t._replace(
-        pos=t.pos.index_copy(0, idx, torch.where(newly_init[:, None], pos, t.pos[idx])),
-        initialized=t.initialized.index_copy(0, idx, t.initialized[idx] | newly_init),
+        pos=t.pos.scatter(1, idx[..., None].expand(new_pos.shape), new_pos),
+        initialized=t.initialized.scatter(1, idx, take(t.initialized, idx) | newly_init),
         obs_valid=t.obs_valid & ~involved_mask,
     )
     state = state._replace(tracks=tracks)
@@ -269,20 +280,20 @@ def _prune_cam_states(state: FilterState, params: MsckfParams, cfg: FilterConfig
 
 
 def _online_reset(state: FilterState, params: MsckfParams) -> FilterState:
-    """Uncertainty watchdog (reference onlineReset), merged with
-    ``torch.where`` so it needs no host read."""
+    """Uncertainty watchdog (reference onlineReset) of each lane, merged
+    with ``torch.where`` so it needs no host read."""
     thr = params.position_std_threshold
-    stds_ok = torch.all(torch.sqrt(torch.diagonal(state.P)[12:15]) < thr)
-    reset = (thr > 0) & ~stds_ok
+    stds_ok = torch.all(torch.sqrt(torch.diagonal(state.P, dim1=-2, dim2=-1)[:, 12:15]) < thr, dim=1)
+    reset = (thr > 0) & ~stds_ok  # (B,)
     t = state.tracks
     tracks = t._replace(
-        fid=torch.where(reset, -1, t.fid),
-        obs_valid=t.obs_valid & ~reset,
-        initialized=t.initialized & ~reset,
+        fid=torch.where(reset[:, None], -1, t.fid),
+        obs_valid=t.obs_valid & ~reset[:, None, None],
+        initialized=t.initialized & ~reset[:, None],
     )
     return state._replace(
         num_cams=torch.where(reset, 0, state.num_cams),
-        P=torch.where(reset, torch.diag(params.init_cov_diag), state.P),
+        P=torch.where(reset[:, None, None], torch.diag(params.init_cov_diag), state.P),
         tracks=tracks,
         online_reset_count=state.online_reset_count + reset.to(torch.int32),
     )
@@ -290,17 +301,17 @@ def _online_reset(state: FilterState, params: MsckfParams) -> FilterState:
 
 def _publish(state: FilterState, time, params: MsckfParams) -> PoseOutput:
     """Body pose T_b_w = T_imu_body T_i_w T_imu_body^-1 and the body-frame
-    position covariance."""
+    position covariance, per lane."""
     R_bi = params.T_body_imu_R
-    R_i_w = jpl_to_rot(state.imu.q).T
+    R_i_w = jpl_to_rot(state.imu.q).transpose(-1, -2)
     R_b_w = R_bi @ R_i_w @ R_bi.T
     return PoseOutput(
         time=time,
-        p=R_bi @ state.imu.p,
-        q_xyzw=rot_to_jpl(R_b_w.T),
-        p_cov=R_bi @ state.P[12:15, 12:15] @ R_bi.T,
+        p=state.imu.p @ R_bi.T,
+        q_xyzw=rot_to_jpl(R_b_w.transpose(-1, -2)),
+        p_cov=R_bi @ state.P[:, 12:15, 12:15] @ R_bi.T,
         num_cams=state.num_cams,
-        num_tracks=torch.sum(state.tracks.fid >= 0),
+        num_tracks=torch.sum(state.tracks.fid >= 0, dim=1),
         tracking_rate=state.tracking_rate,
     )
 
@@ -313,22 +324,43 @@ def filter_step(
     cfg: FilterConfig,
     method: str = "schur",
 ):
-    """One frame of the back-end.  Returns (state, PoseOutput)."""
+    """One frame of one sequence's back-end: the one-lane view of
+    ``batched_filter_step``.  Returns (state, PoseOutput)."""
+    state, out = batched_filter_step(
+        add_lane_axis(state), add_lane_axis(frame), add_lane_axis(imu), params, cfg, method
+    )
+    return drop_lane_axis(state), drop_lane_axis(out)
+
+
+def batched_filter_step(
+    state: FilterState,
+    frame: FrameFeatures,
+    imu: ImuBatch,
+    params: MsckfParams,
+    cfg: FilterConfig,
+    method: str = "schur",
+):
+    """One frame of the back-end of B sequences: ``state``, ``frame`` and
+    ``imu`` with a leading lane axis.  The camera prune is JAX's ``lax.cond``
+    under ``vmap``: one host read asks whether any lane's window is full;
+    if so the prune runs on the whole batch and its result is kept in those
+    lanes only.  Returns (state, PoseOutput)."""
     check_supported(cfg, method)
     with matmul_precision_scope(cfg.matmul_precision):
         first = state.next_sid == 0
         state = state._replace(
             imu=state.imu._replace(time=torch.where(first, frame.time, state.imu.time))
         )
-        state = propagate(state, imu, params.Q_imu)
+        state = batched_propagate(state, imu, params.Q_imu)
         state = augment_state(state, frame.time)
         quality = frame.quality
         if quality is None:
-            quality = torch.zeros_like(frame.uv[:, 0])
+            quality = torch.zeros_like(frame.uv[..., 0])
         state = add_feature_observations(state, frame.fid, frame.uv, frame.valid, quality)
         state = _remove_lost_features(state, params, cfg)
-        if bool(state.num_cams >= cfg.max_cam_state_size):  # one host read per frame
-            state = _prune_cam_states(state, params, cfg)
+        full = state.num_cams >= cfg.max_cam_state_size
+        if bool(torch.any(full)):  # one host read per frame, for every lane
+            state = where_lanes(full, _prune_cam_states(state, params, cfg, full), state)
         out = _publish(state, frame.time, params)
         state = _online_reset(state, params)
         return state, out

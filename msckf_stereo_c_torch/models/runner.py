@@ -3,11 +3,10 @@
 gravity/bias initialization."""
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 import torch
 
+from ..utils.lanes import add_lane_axis, drop_lane_axis
 from .propagation import ImuBatch, initialize_gravity_bias
 from .state import FilterState
 
@@ -19,7 +18,7 @@ def pack_imu_batches(
     frame_t: np.ndarray,
     max_per_frame: int,
     dtype=np.float64,
-    prev_frame_t: Optional[float] = None,
+    prev_frame_t=None,
     device=None,
 ) -> ImuBatch:
     """Slice the IMU stream into (T, L) per-frame batches, valid samples
@@ -27,7 +26,25 @@ def pack_imu_batches(
     everything up to its own time when ``prev_frame_t`` is None).  ``dt``
     carries host-exact float64 deltas chained across frames; -1 asks the
     device to derive the delta from the state clock.  Returned as tensors
-    on ``device`` (CPU when None)."""
+    on ``device`` (CPU when None).
+
+    With ``frame_t`` (B, T), the frame times of B sequences over the one
+    IMU stream, each lane is packed on its own (``prev_frame_t`` then None
+    or one time per lane) and the batches stack to (B, T, L, ...)."""
+    frame_t = np.asarray(frame_t)
+    if frame_t.ndim == 2:
+        prev = [None] * frame_t.shape[0] if prev_frame_t is None else list(prev_frame_t)
+        lanes = [
+            _pack_lane(imu_t, imu_gyro, imu_acc, ft, max_per_frame, dtype, p)
+            for ft, p in zip(frame_t, prev)
+        ]
+        return ImuBatch(*(torch.as_tensor(np.stack(x), device=device) for x in zip(*lanes)))
+    lane = _pack_lane(imu_t, imu_gyro, imu_acc, frame_t, max_per_frame, dtype, prev_frame_t)
+    return ImuBatch(*(torch.as_tensor(x, device=device) for x in lane))
+
+
+def _pack_lane(imu_t, imu_gyro, imu_acc, frame_t, max_per_frame, dtype, prev_frame_t):
+    """numpy (time, gyro, acc, valid, dt) of one sequence's batches."""
     T = frame_t.shape[0]
     L = max_per_frame
     out_t = np.zeros((T, L), dtype)
@@ -66,19 +83,26 @@ def pack_imu_batches(
         else:
             out_dt[k, :m] = np.diff(np.concatenate([[t_carry], tt]))
             t_carry = float(tt[-1])
-
-    def t(x):
-        return torch.as_tensor(x, device=device)
-
-    return ImuBatch(time=t(out_t), gyro=t(out_g), acc=t(out_a), valid=t(out_v), dt=t(out_dt))
+    return out_t, out_g, out_a, out_v, out_dt
 
 
 def apply_gravity_init(state: FilterState, gyro_window, acc_window) -> FilterState:
-    """Set q0, gyro bias and gravity from a static IMU window (reference
-    initializeGravityAndBias)."""
+    """Set q0, gyro bias and gravity of one sequence's state from a static
+    IMU window (reference initializeGravityAndBias): the one-lane view of
+    ``batched_apply_gravity_init``."""
+    return drop_lane_axis(batched_apply_gravity_init(
+        add_lane_axis(state), np.asarray(gyro_window)[None], np.asarray(acc_window)[None]
+    ))
+
+
+def batched_apply_gravity_init(state: FilterState, gyro_windows, acc_windows) -> FilterState:
+    """Per lane of a batched state, q0, gyro bias and gravity from the lane's
+    static IMU window: ``gyro_windows`` and ``acc_windows`` (B, n, 3), or
+    (n, 3) shared by every lane."""
     dtype, dev = state.P.dtype, state.P.device
-    gyro = torch.as_tensor(np.asarray(gyro_window), dtype=dtype, device=dev)
-    acc = torch.as_tensor(np.asarray(acc_window), dtype=dtype, device=dev)
-    q0, bg, gravity = initialize_gravity_bias(gyro, acc)
+    B = state.P.shape[0]
+    gyro = torch.as_tensor(np.asarray(gyro_windows), dtype=dtype, device=dev)
+    acc = torch.as_tensor(np.asarray(acc_windows), dtype=dtype, device=dev)
+    q0, bg, gravity = (x.expand(B, -1).clone() for x in initialize_gravity_bias(gyro, acc))
     imu = state.imu._replace(q=q0, bg=bg, q_null=q0)
     return state._replace(imu=imu, gravity=gravity)

@@ -6,6 +6,8 @@ beyond the active count; feature tracks live in a pool of ``max_tracks``
 slots with (M, 4) observations aligned to the camera slots.  Error-state
 layout: [0:3 dtheta, 3:6 d_bg, 6:9 dv, 9:12 d_ba, 12:15 dp, 15:18
 dtheta_extr, 18:21 dt_extr], then 6 per camera slot [dtheta_c, dp_c].
+The shapes below are one sequence's; a batched state (``utils/lanes.py``)
+carries a leading lane axis B on every tensor.
 """
 from __future__ import annotations
 

@@ -1,10 +1,13 @@
 """Batched inverse-depth Levenberg-Marquardt triangulation (port of
-``msckf_stereo_c_tpu/models/triangulation.py``), written out over a leading
-track axis in place of ``vmap``.
+``msckf_stereo_c_tpu/models/triangulation.py``), written out over the
+tracks of every sequence lane in place of ``vmap``.
 
-The JAX loop runs, under ``vmap``, until every lane has converged and keeps
-the finished lanes frozen; here each lane's update is masked the same way and
-the loop stops once no lane is active (one host read per iteration).
+Inputs carry a leading sequence axis B: tracks (B, K, ...) seen from each
+lane's own camera window (B, M, ...).  The LM loop runs on the B x K tracks
+flattened into one axis.  The JAX loop runs, under ``vmap``, until every
+track has converged and keeps the finished ones frozen; here each track's
+update is masked the same way and the loop stops once no track of any lane
+is active (one host read per iteration for all lanes).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.linalg import solve3x3
+from ..utils.lanes import take
 from ..utils.quaternion import jpl_to_rot
 
 _LM_ITERS = 30
@@ -36,9 +40,9 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
 
 def _stereo_pose_stack(cam_q, cam_p, obs_valid, R_c0_c1, t_c0_c1):
     """Per-track cam0/cam1 poses re-based to each track's first valid cam0
-    frame: R (K, 2M, 3, 3), t (K, 2M, 3) with x_ci = R_i x_base + t_i, plus
-    the base (cam0 -> world) transform and slot."""
-    K, M = obs_valid.shape
+    frame: R (B, K, 2M, 3, 3), t (B, K, 2M, 3) with x_ci = R_i x_base +
+    t_i, plus the base (cam0 -> world) transform and slot."""
+    B, K, M = obs_valid.shape
     R_w_c0 = jpl_to_rot(cam_q)
     R_c0_w = R_w_c0.transpose(-1, -2)
     R_c1_c0 = R_c0_c1.T
@@ -47,20 +51,20 @@ def _stereo_pose_stack(cam_q, cam_p, obs_valid, R_c0_c1, t_c0_c1):
     t_c1_w = R_c0_w @ t_c1_c0 + cam_p
 
     i0 = _first_true(obs_valid)
-    Rb = R_c0_w[i0]  # (K, 3, 3)
-    tb = cam_p[i0]  # (K, 3)
+    Rb = take(R_c0_w, i0)  # (B, K, 3, 3)
+    tb = take(cam_p, i0)  # (B, K, 3)
 
     def rel(Rcw, tcw):
-        Rwc = Rcw.transpose(-1, -2)  # (M, 3, 3)
-        twc = -(Rwc @ tcw[..., None])[..., 0]  # (M, 3)
-        Rrel = torch.einsum("mij,kjl->kmil", Rwc, Rb)
-        trel = torch.einsum("mij,kj->kmi", Rwc, tb) + twc
+        Rwc = Rcw.transpose(-1, -2)  # (B, M, 3, 3)
+        twc = -(Rwc @ tcw[..., None])[..., 0]  # (B, M, 3)
+        Rrel = torch.einsum("bmij,bkjl->bkmil", Rwc, Rb)
+        trel = torch.einsum("bmij,bkj->bkmi", Rwc, tb) + twc[:, None]
         return Rrel, trel
 
     R0, t0 = rel(R_c0_w, cam_p)
     R1, t1 = rel(R_c1_w, t_c1_w)
-    R = torch.stack([R0, R1], dim=2).reshape(K, 2 * M, 3, 3)
-    t = torch.stack([t0, t1], dim=2).reshape(K, 2 * M, 3)
+    R = torch.stack([R0, R1], dim=3).reshape(B, K, 2 * M, 3, 3)
+    t = torch.stack([t0, t1], dim=3).reshape(B, K, 2 * M, 3)
     return R, t, Rb, tb, i0
 
 
@@ -97,19 +101,25 @@ def _normal_equations(R, t, w_valid, x, z):
 
 
 def triangulate_tracks(
-    obs: torch.Tensor,  # (K, M, 4) normalized stereo observations
-    obs_valid: torch.Tensor,  # (K, M)
-    cam_q: torch.Tensor,  # (M, 4)
-    cam_p: torch.Tensor,  # (M, 3)
+    obs: torch.Tensor,  # (B, K, M, 4) normalized stereo observations
+    obs_valid: torch.Tensor,  # (B, K, M)
+    cam_q: torch.Tensor,  # (B, M, 4)
+    cam_p: torch.Tensor,  # (B, M, 3)
     R_c0_c1: torch.Tensor,
     t_c0_c1: torch.Tensor,
+    active: torch.Tensor | None = None,  # (B,) lanes whose tracks iterate
 ) -> TriangulationResult:
-    """Damped LM triangulation of K tracks at once (reference
-    Feature::initializePosition)."""
-    dtype = obs.dtype
-    K, M, _ = obs.shape
-    ar = torch.arange(K, device=obs.device)
+    """Damped LM triangulation of the K tracks of all B lanes at once
+    (reference Feature::initializePosition); the tracks of a lane outside
+    ``active`` skip the LM steps.  Results are (B, K, ...)."""
+    Bl, K0 = obs_valid.shape[:2]
     R, t, Rb, tb, i0 = _stereo_pose_stack(cam_q, cam_p, obs_valid, R_c0_c1, t_c0_c1)
+    M = obs.shape[2]
+    K = Bl * K0
+    obs, obs_valid = obs.reshape(K, M, 4), obs_valid.reshape(K, M)
+    R, t, i0 = R.reshape(K, 2 * M, 3, 3), t.reshape(K, 2 * M, 3), i0.reshape(K)
+    dtype = obs.dtype
+    ar = torch.arange(K, device=obs.device)
     z = obs.reshape(K, 2 * M, 2)  # interleaved cam0, cam1
     w_valid = torch.repeat_interleave(obs_valid, 2, dim=1)
 
@@ -131,7 +141,10 @@ def triangulate_tracks(
     x = torch.stack([p0[:, 0] / safe_depth, p0[:, 1] / safe_depth, 1.0 / safe_depth], dim=-1)
     cost = _cost(R, t, w_valid, x, z)
     lam = torch.full((K,), _LAMBDA_INIT, dtype=dtype, device=obs.device)
-    active = torch.ones(K, dtype=torch.bool, device=obs.device)
+    if active is None:
+        active = torch.ones(K, dtype=torch.bool, device=obs.device)
+    else:
+        active = active[:, None].expand(Bl, K0).reshape(K)
     eye3 = torch.eye(3, dtype=dtype, device=obs.device)
 
     for _ in range(_LM_ITERS):
@@ -152,8 +165,8 @@ def triangulate_tracks(
             lam,
         )
         active = active & (torch.linalg.norm(delta, dim=-1) > _PRECISION)
-        # One host read per iteration buys JAX's early exit (LM stops once
-        # every lane has converged).
+        # One host read per iteration, for every lane at once, buys JAX's
+        # early exit (LM stops once every track has converged).
         if not bool(torch.any(active)):
             break
 
@@ -164,8 +177,9 @@ def triangulate_tracks(
     depths = (torch.einsum("kmij,kj->kmi", R, p_base) + t)[..., 2]
     valid = torch.all(torch.where(w_valid, depths > 0, True), dim=1)
     valid = valid & (torch.sum(obs_valid, dim=1) >= 2)
+    p_base = p_base.reshape(Bl, K0, 3)
     pos_w = (Rb @ p_base[..., None])[..., 0] + tb
-    return TriangulationResult(pos_w=pos_w, valid=valid, base_slot=i0)
+    return TriangulationResult(pos_w=pos_w, valid=valid.reshape(Bl, K0), base_slot=i0.reshape(Bl, K0))
 
 
 def check_motion_tracks(
@@ -175,17 +189,17 @@ def check_motion_tracks(
     cam_p: torch.Tensor,
     translation_threshold,
 ) -> torch.Tensor:
-    """Parallax gate per track: the first->last camera translation's
+    """Parallax gate per track (B, K): the first->last camera translation's
     component orthogonal to the first observation ray."""
-    K, M, _ = obs.shape
-    ar = torch.arange(K, device=obs.device)
+    M = obs.shape[2]
     i0 = _first_true(obs_valid)
-    i1 = M - 1 - _first_true(torch.flip(obs_valid, dims=[1]))
-    R0 = jpl_to_rot(cam_q[i0])
-    ray_c = torch.cat([obs[ar, i0, 0:2], torch.ones_like(obs[:, 0, :1])], dim=1)
+    i1 = M - 1 - _first_true(torch.flip(obs_valid, dims=[-1]))
+    R0 = jpl_to_rot(take(cam_q, i0))
+    first = torch.take_along_dim(obs, i0[..., None, None], dim=2)[:, :, 0, 0:2]
+    ray_c = torch.cat([first, torch.ones_like(first[..., :1])], dim=-1)
     ray_c = ray_c / torch.linalg.norm(ray_c, dim=-1, keepdim=True)
     ray_w = (R0.transpose(-1, -2) @ ray_c[..., None])[..., 0]
-    translation = cam_p[i1] - cam_p[i0]
+    translation = take(cam_p, i1) - take(cam_p, i0)
     parallel = torch.sum(translation * ray_w, dim=-1, keepdim=True)
     orthogonal = translation - parallel * ray_w
     return torch.linalg.norm(orthogonal, dim=-1) > translation_threshold

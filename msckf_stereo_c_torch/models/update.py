@@ -6,6 +6,8 @@ Per-(track, camera) 4x6 / 4x3 Jacobian blocks with the observability
 constraint are computed for the whole (K tracks x M slots) grid at once;
 gating and the EKF update marginalize the feature positions through an
 orthonormal basis of each track's H_f, with no QR and no factorization.
+Every tensor carries a leading sequence lane axis B; the (B, D, D) solves
+run batched over the lanes.
 """
 from __future__ import annotations
 
@@ -20,62 +22,64 @@ from .state import CamStates, FilterState
 
 
 class TrackBlocks(NamedTuple):
-    H_x: torch.Tensor  # (K, M, 4, 6)
-    H_f: torch.Tensor  # (K, M, 4, 3)
-    r: torch.Tensor  # (K, M, 4)
-    obs_mask: torch.Tensor  # (K, M)
+    H_x: torch.Tensor  # (B, K, M, 4, 6)
+    H_f: torch.Tensor  # (B, K, M, 4, 3)
+    r: torch.Tensor  # (B, K, M, 4)
+    obs_mask: torch.Tensor  # (B, K, M)
 
 
 def track_blocks(
-    pos_w: torch.Tensor,  # (K, 3)
-    obs: torch.Tensor,  # (K, M, 4)
-    obs_mask: torch.Tensor,  # (K, M)
-    cams: CamStates,
-    gravity: torch.Tensor,
+    pos_w: torch.Tensor,  # (B, K, 3)
+    obs: torch.Tensor,  # (B, K, M, 4)
+    obs_mask: torch.Tensor,  # (B, K, M)
+    cams: CamStates,  # (B, M, ...)
+    gravity: torch.Tensor,  # (B, 3)
     R_c0_c1: torch.Tensor,
     t_c0_c1: torch.Tensor,
 ) -> TrackBlocks:
     """OC-projected stereo reprojection Jacobian blocks for every (track,
-    camera) pair (reference measurementJacobian), masked with ``where``:
-    masked pairs may carry inf/NaN from degenerate triangulations."""
+    camera) pair of every lane (reference measurementJacobian), masked with
+    ``where``: masked pairs may carry inf/NaN from degenerate
+    triangulations."""
     dtype = pos_w.dtype
-    K, M, _ = obs.shape
-    R_w_c0 = jpl_to_rot(cams.q)  # (M, 3, 3)
+    B, K, M, _ = obs.shape
+    R_w_c0 = jpl_to_rot(cams.q)  # (B, M, 3, 3)
     R_w_c1 = R_c0_c1 @ R_w_c0
-    t_c1_w = cams.p - (R_w_c1.transpose(-1, -2) @ t_c0_c1)  # (M, 3)
+    t_c1_w = cams.p - (R_w_c1.transpose(-1, -2) @ t_c0_c1)  # (B, M, 3)
 
-    d0 = pos_w[:, None, :] - cams.p[None]  # (K, M, 3)
-    d1 = pos_w[:, None, :] - t_c1_w[None]
-    p_c0 = torch.einsum("mij,kmj->kmi", R_w_c0, d0)
-    p_c1 = torch.einsum("mij,kmj->kmi", R_w_c1, d1)
+    d0 = pos_w[:, :, None, :] - cams.p[:, None]  # (B, K, M, 3)
+    d1 = pos_w[:, :, None, :] - t_c1_w[:, None]
+    p_c0 = torch.einsum("zmij,zkmj->zkmi", R_w_c0, d0)
+    p_c1 = torch.einsum("zmij,zkmj->zkmi", R_w_c1, d1)
     z0 = torch.where(torch.abs(p_c0[..., 2]) > 1e-9, p_c0[..., 2], 1e-9)
     z1 = torch.where(torch.abs(p_c1[..., 2]) > 1e-9, p_c1[..., 2], 1e-9)
 
-    dz_dpc0 = torch.zeros((K, M, 4, 3), dtype=dtype, device=pos_w.device)
+    dz_dpc0 = torch.zeros((B, K, M, 4, 3), dtype=dtype, device=pos_w.device)
     dz_dpc0[..., 0, 0] = 1.0 / z0
     dz_dpc0[..., 1, 1] = 1.0 / z0
     dz_dpc0[..., 0, 2] = -p_c0[..., 0] / (z0 * z0)
     dz_dpc0[..., 1, 2] = -p_c0[..., 1] / (z0 * z0)
-    dz_dpc1 = torch.zeros((K, M, 4, 3), dtype=dtype, device=pos_w.device)
+    dz_dpc1 = torch.zeros((B, K, M, 4, 3), dtype=dtype, device=pos_w.device)
     dz_dpc1[..., 2, 0] = 1.0 / z1
     dz_dpc1[..., 3, 1] = 1.0 / z1
     dz_dpc1[..., 2, 2] = -p_c1[..., 0] / (z1 * z1)
     dz_dpc1[..., 3, 2] = -p_c1[..., 1] / (z1 * z1)
 
-    sk0 = skew(p_c0)  # (K, M, 3, 3)
-    dpc0_dxc = torch.cat([sk0, (-R_w_c0).expand(K, M, 3, 3)], dim=-1)
-    dpc1_dxc = torch.cat([R_c0_c1 @ sk0, (-R_w_c1).expand(K, M, 3, 3)], dim=-1)
-    H_x = dz_dpc0 @ dpc0_dxc + dz_dpc1 @ dpc1_dxc  # (K, M, 4, 6)
+    sk0 = skew(p_c0)  # (B, K, M, 3, 3)
+    dpc0_dxc = torch.cat([sk0, (-R_w_c0)[:, None].expand(B, K, M, 3, 3)], dim=-1)
+    dpc1_dxc = torch.cat([R_c0_c1 @ sk0, (-R_w_c1)[:, None].expand(B, K, M, 3, 3)], dim=-1)
+    H_x = dz_dpc0 @ dpc0_dxc + dz_dpc1 @ dpc1_dxc  # (B, K, M, 4, 6)
 
     # Observability constraint: project out u (gravity rotation + position).
+    g = gravity[:, None, :, None]
     u = torch.cat(
         [
-            (jpl_to_rot(cams.q_null) @ gravity).expand(K, M, 3),
-            skew(pos_w[:, None, :] - cams.p_null[None]) @ gravity,
+            (jpl_to_rot(cams.q_null) @ g)[..., 0][:, None].expand(B, K, M, 3),
+            (skew(pos_w[:, :, None, :] - cams.p_null[:, None]) @ g[:, None])[..., 0],
         ],
         dim=-1,
-    )  # (K, M, 6)
-    Hu = (H_x @ u[..., None])[..., 0]  # (K, M, 4)
+    )  # (B, K, M, 6)
+    Hu = (H_x @ u[..., None])[..., 0]  # (B, K, M, 4)
     H_x = H_x - Hu[..., :, None] * u[..., None, :] / torch.sum(u * u, dim=-1)[..., None, None]
     H_f = -H_x[..., 3:6]
     zhat = torch.stack(
@@ -93,10 +97,10 @@ def track_blocks(
 
 
 def _feature_basis(blocks: TrackBlocks) -> torch.Tensor:
-    """(K, 4M, 3) orthonormal basis of col(H_f) per track by modified
+    """(B, K, 4M, 3) orthonormal basis of col(H_f) per track by modified
     Gram-Schmidt over the three columns."""
-    K, M = blocks.obs_mask.shape
-    Fm = blocks.H_f.reshape(K, 4 * M, 3)
+    B, K, M = blocks.obs_mask.shape
+    Fm = blocks.H_f.reshape(B, K, 4 * M, 3)
 
     def unit(v):
         return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-12)
@@ -111,85 +115,92 @@ def _feature_basis(blocks: TrackBlocks) -> torch.Tensor:
 
 
 def _projected_information(blocks: TrackBlocks, use_mask: torch.Tensor):
-    """Accumulated information of the selected tracks with the features
-    marginalized, over the blocks' camera slots: the Gram matrix of the
-    projected rows B = (I - Q1 Q1^T) H, kept in per-camera blocks (PSD to
-    rounding even in f32).  Returns (Ncc (6Mc, 6Mc), ycc (6Mc,))."""
-    K, Mc = blocks.obs_mask.shape
+    """Accumulated information of the selected tracks of each lane with the
+    features marginalized, over the blocks' camera slots: the Gram matrix
+    of the projected rows B = (I - Q1 Q1^T) H, kept in per-camera blocks
+    (PSD to rounding even in f32).  Returns (Ncc (B, 6Mc, 6Mc), ycc
+    (B, 6Mc))."""
+    Bl, K, Mc = blocks.obs_mask.shape
     use = use_mask.to(blocks.H_x.dtype)
-    Q1 = _feature_basis(blocks).reshape(K, Mc, 4, 3)
-    W = torch.einsum("kjac,kjab->kjcb", Q1, blocks.H_x)  # Q1_j^T H_xj
-    B = -torch.einsum("kiac,kjcb->kijab", Q1, W)  # (K, Mc, Mc, 4, 6)
-    ar = torch.arange(Mc, device=B.device)
-    B[:, ar, ar] += blocks.H_x
-    rho = torch.einsum("kiac,kia->kc", Q1, blocks.r)
-    r_proj = blocks.r - torch.einsum("kiac,kc->kia", Q1, rho)
-    Ncc = torch.einsum("k,kijab,kiJaB->jbJB", use, B, B).reshape(6 * Mc, 6 * Mc)
-    ycc = torch.einsum("k,kijab,kia->jb", use, B, r_proj).reshape(6 * Mc)
+    Q1 = _feature_basis(blocks).reshape(Bl, K, Mc, 4, 3)
+    W = torch.einsum("zkjac,zkjab->zkjcb", Q1, blocks.H_x)  # Q1_j^T H_xj
+    Bm = -torch.einsum("zkiac,zkjcb->zkijab", Q1, W)  # (B, K, Mc, Mc, 4, 6)
+    ar = torch.arange(Mc, device=Bm.device)
+    Bm[:, :, ar, ar] += blocks.H_x
+    rho = torch.einsum("zkiac,zkia->zkc", Q1, blocks.r)
+    r_proj = blocks.r - torch.einsum("zkiac,zkc->zkia", Q1, rho)
+    Ncc = torch.einsum("zk,zkijab,zkiJaB->zjbJB", use, Bm, Bm).reshape(Bl, 6 * Mc, 6 * Mc)
+    ycc = torch.einsum("zk,zkijab,zkia->zjb", use, Bm, r_proj).reshape(Bl, 6 * Mc)
     return Ncc, ycc
 
 
 def schur_information_cam(blocks: TrackBlocks, use_mask: torch.Tensor):
-    """Camera-block information (Ncc (6M, 6M), ycc (6M,))."""
+    """Camera-block information (Ncc (B, 6M, 6M), ycc (B, 6M))."""
     return _projected_information(blocks, use_mask)
 
 
+def _cam_blocks(P: torch.Tensor) -> torch.Tensor:
+    """(B, M, M, 6, 6) camera-camera covariance blocks of P (B, D, D)."""
+    B, D = P.shape[0], P.shape[-1]
+    M = (D - 21) // 6
+    return P[:, 21:, 21:].reshape(B, M, 6, M, 6).permute(0, 1, 3, 2, 4)
+
+
 def cam_cov_blocks(P: torch.Tensor, cam_idx: torch.Tensor) -> torch.Tensor:
-    """(Mc, Mc, 6, 6) camera-camera covariance blocks of ``cam_idx``."""
-    M = (P.shape[0] - 21) // 6
-    Pc = P[21:, 21:].reshape(M, 6, M, 6).permute(0, 2, 1, 3)
-    return Pc[cam_idx][:, cam_idx]
+    """(B, Mc, Mc, 6, 6) camera-camera covariance blocks of each lane's
+    ``cam_idx`` (B, Mc)."""
+    lanes = torch.arange(P.shape[0], device=P.device)[:, None, None]
+    return _cam_blocks(P)[lanes, cam_idx[:, :, None], cam_idx[:, None, :]]
 
 
 def _constrained_gamma(Mk, Q1, r, sigma2, ns_iters: int):
     """gamma = r^T w with M w + Q1 lam = r, Q1^T w = 0, by block
     elimination with the Newton-Schulz inverse of M."""
     X = ns_posdef_inverse(Mk, sigma2, ns_iters)
-    Minv_r = torch.einsum("krs,ks->kr", X, r)
+    Minv_r = torch.einsum("...rs,...s->...r", X, r)
     Minv_Q = X @ Q1
-    QMQ = torch.einsum("kra,krb->kab", Q1, Minv_Q)
-    QMr = torch.einsum("kra,kr->ka", Q1, Minv_r)
+    QMQ = torch.einsum("...ra,...rb->...ab", Q1, Minv_Q)
+    QMr = torch.einsum("...ra,...r->...a", Q1, Minv_r)
     eye3 = torch.eye(3, dtype=Mk.dtype, device=Mk.device)
-    lam = torch.einsum("kab,kb->ka", inv3x3(QMQ + 1e-12 * eye3), QMr)
-    w = Minv_r - torch.einsum("kra,ka->kr", Minv_Q, lam)
-    return torch.einsum("kr,kr->k", r, w)
+    lam = torch.einsum("...ab,...b->...a", inv3x3(QMQ + 1e-12 * eye3), QMr)
+    w = Minv_r - torch.einsum("...ra,...a->...r", Minv_Q, lam)
+    return torch.einsum("...r,...r->...", r, w)
 
 
 def _gamma(blocks: TrackBlocks, Pc: torch.Tensor, sigma2, ns_iters: int) -> torch.Tensor:
-    K, Mc = blocks.obs_mask.shape
+    B, K, Mc = blocks.obs_mask.shape
     R4 = 4 * Mc
-    MP = torch.einsum("kiab,ijbc,kjdc->kijad", blocks.H_x, Pc, blocks.H_x)
-    Mk = MP.permute(0, 1, 3, 2, 4).reshape(K, R4, R4)
+    MP = torch.einsum("zkiab,zijbc,zkjdc->zkijad", blocks.H_x, Pc, blocks.H_x)
+    Mk = MP.permute(0, 1, 2, 4, 3, 5).reshape(B, K, R4, R4)
     Mk = Mk + sigma2 * torch.eye(R4, dtype=Mk.dtype, device=Mk.device)
     Q1 = _feature_basis(blocks)
-    return _constrained_gamma(Mk, Q1, blocks.r.reshape(K, R4), sigma2, ns_iters)
+    return _constrained_gamma(Mk, Q1, blocks.r.reshape(B, K, R4), sigma2, ns_iters)
 
 
 def schur_gating(blocks: TrackBlocks, P: torch.Tensor, sigma2, ns_iters: int) -> torch.Tensor:
-    """Mahalanobis gamma per track of the nullspace-projected system."""
-    M = blocks.obs_mask.shape[1]
-    Pc = P[21:, 21:].reshape(M, 6, M, 6).permute(0, 2, 1, 3)
-    return _gamma(blocks, Pc, sigma2, ns_iters)
+    """Mahalanobis gamma (B, K) per track of the nullspace-projected
+    system."""
+    return _gamma(blocks, _cam_blocks(P), sigma2, ns_iters)
 
 
 def schur_gating_compact(blocks: TrackBlocks, Pc: torch.Tensor, sigma2, ns_iters: int):
-    """``schur_gating`` on camera-compacted blocks with their (Mc, Mc, 6, 6)
-    covariance blocks ``Pc``."""
+    """``schur_gating`` on camera-compacted blocks with their (B, Mc, Mc, 6,
+    6) covariance blocks ``Pc``."""
     return _gamma(blocks, Pc, sigma2, ns_iters)
 
 
 def _ns_update(state: FilterState, Ncc, ycc, P_cols, P_cc, sigma2, ns_iters: int) -> FilterState:
-    """Factorization-free information-form EKF update:
+    """Factorization-free information-form EKF update of each lane:
     Gcc = (s2 I + Ncc Pcc)^-1 Ncc, delta = P[:, c] (s2 I + Ncc Pcc)^-1 ycc,
     P' = P - P[:, c] Gcc P[c, :]."""
-    Rk = Ncc.shape[0]
+    Rk = Ncc.shape[-1]
     Mu = sigma2 * torch.eye(Rk, dtype=Ncc.dtype, device=Ncc.device) + Ncc @ P_cc
     W = ns_posdef_inverse(Mu, sigma2, ns_iters)
     Gcc = W @ Ncc
-    Gcc = 0.5 * (Gcc + Gcc.T)
-    delta = P_cols @ (W @ ycc)
-    P_new = state.P - P_cols @ Gcc @ P_cols.T
-    P_new = 0.5 * (P_new + P_new.T)
+    Gcc = 0.5 * (Gcc + Gcc.transpose(-1, -2))
+    delta = (P_cols @ (W @ ycc[..., None]))[..., 0]
+    P_new = state.P - P_cols @ Gcc @ P_cols.transpose(-1, -2)
+    P_new = 0.5 * (P_new + P_new.transpose(-1, -2))
     state = apply_correction(state, delta)
     return state._replace(P=P_new)
 
@@ -201,7 +212,7 @@ def measurement_update_schur(
     slots."""
     Ncc, ycc = schur_information_cam(blocks, use_mask)
     P = state.P
-    return _ns_update(state, Ncc, ycc, P[:, 21:], P[21:, 21:], sigma2, ns_iters)
+    return _ns_update(state, Ncc, ycc, P[:, :, 21:], P[:, 21:, 21:], sigma2, ns_iters)
 
 
 def measurement_update_schur_compact(
@@ -213,33 +224,36 @@ def measurement_update_schur_compact(
     ns_iters: int,
 ) -> FilterState:
     """Camera-compacted Schur update: the information lives in the 6*Mc
-    state columns of ``cam_idx``."""
-    Mc = cam_idx.shape[0]
+    state columns of each lane's ``cam_idx`` (B, Mc)."""
+    B, Mc = cam_idx.shape
+    D = state.P.shape[-1]
     Ncc, ycc = _projected_information(blocks, use_mask)
-    cols = (21 + 6 * cam_idx[:, None] + torch.arange(6, device=cam_idx.device)[None]).reshape(6 * Mc)
-    P_cols = state.P[:, cols]
-    return _ns_update(state, Ncc, ycc, P_cols, P_cols[cols], sigma2, ns_iters)
+    cols = (21 + 6 * cam_idx[..., None] + torch.arange(6, device=cam_idx.device)).reshape(B, 6 * Mc)
+    P_cols = torch.gather(state.P, 2, cols[:, None, :].expand(B, D, 6 * Mc))
+    P_cc = torch.gather(P_cols, 1, cols[:, :, None].expand(B, 6 * Mc, 6 * Mc))
+    return _ns_update(state, Ncc, ycc, P_cols, P_cc, sigma2, ns_iters)
 
 
 def apply_correction(state: FilterState, delta: torch.Tensor) -> FilterState:
-    """Inject the error-state correction into the nominal state."""
+    """Inject each lane's error-state correction (B, D) into its nominal
+    state."""
     imu = state.imu
-    M = state.cams.q.shape[0]
-    dq_imu = small_angle_quaternion(delta[0:3])
-    dq_ext = small_angle_quaternion(delta[15:18])
+    B, M = state.cams.sid.shape
+    dq_imu = small_angle_quaternion(delta[:, 0:3])
+    dq_ext = small_angle_quaternion(delta[:, 15:18])
     new_imu = imu._replace(
         q=quat_multiply(dq_imu, imu.q),
-        bg=imu.bg + delta[3:6],
-        v=imu.v + delta[6:9],
-        ba=imu.ba + delta[9:12],
-        p=imu.p + delta[12:15],
+        bg=imu.bg + delta[:, 3:6],
+        v=imu.v + delta[:, 6:9],
+        ba=imu.ba + delta[:, 9:12],
+        p=imu.p + delta[:, 12:15],
         R_imu_cam0=jpl_to_rot(dq_ext) @ imu.R_imu_cam0,
-        t_cam0_imu=imu.t_cam0_imu + delta[18:21],
+        t_cam0_imu=imu.t_cam0_imu + delta[:, 18:21],
     )
-    cam_delta = delta[21:].reshape(M, 6)
-    active = (torch.arange(M, device=delta.device) < state.num_cams)[:, None]
-    q_new = quat_multiply(small_angle_quaternion(cam_delta[:, 0:3]), state.cams.q)
-    p_new = state.cams.p + cam_delta[:, 3:6]
+    cam_delta = delta[:, 21:].reshape(B, M, 6)
+    active = (torch.arange(M, device=delta.device)[None, :] < state.num_cams[:, None])[..., None]
+    q_new = quat_multiply(small_angle_quaternion(cam_delta[..., 0:3]), state.cams.q)
+    p_new = state.cams.p + cam_delta[..., 3:6]
     cams = state.cams._replace(
         q=torch.where(active, q_new, state.cams.q),
         p=torch.where(active, p_new, state.cams.p),

@@ -1,32 +1,38 @@
 """Full VIO system: front-end tracker + MSCKF back-end, one frame per step
 (port of ``msckf_stereo_c_tpu/models/vio.py``).
 
-``run_vio_sequence`` and ``init_vio_state`` run on the CUDA card unless the
-caller names another device.  A sequence is one B=1 run stepped frame by
-frame in a Python loop; each chunk of frames is copied to the device once,
-and the per-frame outputs come back to the host once at the end.
+``batched_vio_step`` steps B independent sequences together (the JAX
+package's ``jax.vmap(vio_step)``): every state tensor carries a leading lane
+axis, and the images come per lane as (B, H, W) or shared by every lane as
+(H, W).  ``vio_step`` is its one-lane view and ``run_vio_sequence`` drives
+one sequence frame by frame in a Python loop; each chunk of frames is
+copied to the device once, and the per-frame outputs come back to the host
+once at the end.  ``run_vio_sequence`` and ``init_vio_state`` run on the
+CUDA card unless the caller names another device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import FilterConfig, FrontendConfig, StereoCalib, matmul_precision_scope, resolve_device
+from ..utils.lanes import add_lane_axis, drop_lane_axis, map_tree
 from ..utils.quaternion import jpl_to_rot
 from . import frontend as _frontend
 from . import msckf as _msckf
 from .frontend import (
+    FrameOutput,
     FrontendParams,
     TrackerState,
-    frontend_step,
+    batched_frontend_step,
     init_tracker_state,
     make_frontend_params,
     pyramids_for,
 )
-from .msckf import FrameFeatures, MsckfParams, filter_step, make_params
+from .msckf import FrameFeatures, MsckfParams, PoseOutput, batched_filter_step, make_params
 from .propagation import ImuBatch
 from .runner import apply_gravity_init, pack_imu_batches
 from .state import FilterState, init_filter_state
@@ -48,8 +54,8 @@ def init_vio_state(
     filter_dtype=torch.float64,
     device=None,
 ) -> VioState:
-    """Initial state on ``device`` (the CUDA card when None; raises when
-    CUDA is missing and no device was given)."""
+    """Initial state of one sequence on ``device`` (the CUDA card when None;
+    raises when CUDA is missing and no device was given)."""
     device = resolve_device(device)
     H, W = img_shape
     dummy = torch.zeros((H, W), dtype=image_dtype, device=device)
@@ -61,17 +67,29 @@ def init_vio_state(
     )
 
 
+def lane_pyramids(img: torch.Tensor, B: int, fcfg: FrontendConfig) -> Tuple[torch.Tensor, ...]:
+    """Pyramid levels (B, h, w) of per-lane images (B, H, W), or of one
+    image (H, W) shared by the B lanes: built once and broadcast, never
+    copied B times."""
+    if img.dim() == 2:
+        return tuple(lvl.expand(B, *lvl.shape) for lvl in pyramids_for(img, fcfg))
+    # One frame of a (B, T, H, W) clip is a strided view; the kernels read
+    # contiguous stacks.
+    return pyramids_for(img.contiguous(), fcfg)
+
+
 def _run_frontend(state: VioState, img0, img1, time, imu: ImuBatch, fparams, fcfg):
-    """Pyramids, mean gyro, frame dt and the tracker step; packs the
-    filter's FrameFeatures."""
+    """Pyramids, mean gyro, frame dt and the tracker step of every lane;
+    packs the filter's FrameFeatures."""
     fdtype = state.filt.P.dtype
     idtype = img0.dtype
+    B = state.prev_time.shape[0]
     with matmul_precision_scope(fcfg.matmul_precision):
-        pyr0 = pyramids_for(img0, fcfg)
-        pyr1 = pyramids_for(img1, fcfg)
+        pyr0 = lane_pyramids(img0, B, fcfg)
+        pyr1 = lane_pyramids(img1, B, fcfg)
 
-    n_valid = torch.clamp(torch.sum(imu.valid), min=1)
-    mean_gyro = torch.sum(torch.where(imu.valid[:, None], imu.gyro, 0.0), dim=0) / n_valid.to(
+    n_valid = torch.clamp(torch.sum(imu.valid, dim=1), min=1)
+    mean_gyro = torch.sum(torch.where(imu.valid[..., None], imu.gyro, 0.0), dim=1) / n_valid[:, None].to(
         imu.gyro.dtype
     )
     is_first = state.prev_time < 0
@@ -80,9 +98,10 @@ def _run_frontend(state: VioState, img0, img1, time, imu: ImuBatch, fparams, fcf
     # The filter's velocity (world frame) rotated into cam0 seeds the
     # translation-aware temporal prediction.
     R_wi = jpl_to_rot(state.filt.imu.q)
-    cam_vel = fparams.R_imu_cam0 @ (R_wi @ state.filt.imu.v).to(idtype)
+    v_i = (R_wi @ state.filt.imu.v[..., None])[..., 0]
+    cam_vel = v_i.to(idtype) @ fparams.R_imu_cam0.T
 
-    tracker, out = frontend_step(
+    tracker, out = batched_frontend_step(
         state.tracker, state.pyr0_prev, pyr0, pyr1, mean_gyro.to(idtype), dt.to(idtype),
         is_first, fparams, fcfg, cam_vel,
     )
@@ -94,6 +113,30 @@ def _run_frontend(state: VioState, img0, img1, time, imu: ImuBatch, fparams, fcf
         quality=out.quality.to(fdtype),
     )
     return tracker, out, frame, pyr0
+
+
+def batched_vio_step(
+    state: VioState,
+    img0: torch.Tensor,
+    img1: torch.Tensor,
+    time: torch.Tensor,
+    imu: ImuBatch,
+    fparams: FrontendParams,
+    mparams: MsckfParams,
+    fcfg: FrontendConfig,
+    mcfg: FilterConfig,
+    method: str = "schur",
+):
+    """One stereo frame of B sequences end to end: ``state`` with a leading
+    lane axis, images (B, H, W) per lane or (H, W) shared, ``time`` (B,),
+    ``imu`` (B, L, ...).  Every kernel launches once for all lanes.
+    Returns (state, (PoseOutput, FrameOutput)), each with a leading B."""
+    tracker, out, frame, pyr0 = _run_frontend(state, img0, img1, time, imu, fparams, fcfg)
+    filt, pose = batched_filter_step(state.filt, frame, imu, mparams, mcfg, method=method)
+    new_state = VioState(
+        tracker=tracker, filt=filt, pyr0_prev=pyr0, prev_time=time.to(state.filt.P.dtype)
+    )
+    return new_state, (pose, out)
 
 
 def vio_step(
@@ -108,14 +151,49 @@ def vio_step(
     mcfg: FilterConfig,
     method: str = "schur",
 ):
-    """One stereo frame end to end.  Returns (state, (PoseOutput,
+    """One stereo frame of one sequence end to end: the one-lane view of
+    ``batched_vio_step`` (images (H, W)).  Returns (state, (PoseOutput,
     FrameOutput))."""
-    tracker, out, frame, pyr0 = _run_frontend(state, img0, img1, time, imu, fparams, fcfg)
-    filt, pose = filter_step(state.filt, frame, imu, mparams, mcfg, method=method)
-    new_state = VioState(
-        tracker=tracker, filt=filt, pyr0_prev=pyr0, prev_time=time.to(state.filt.P.dtype)
+    state, outs = batched_vio_step(
+        add_lane_axis(state), img0, img1, time.reshape(1), add_lane_axis(imu),
+        fparams, mparams, fcfg, mcfg, method,
     )
-    return new_state, (pose, out)
+    return drop_lane_axis(state), drop_lane_axis(outs)
+
+
+def step_frames(
+    state: VioState,
+    imgs0: torch.Tensor,
+    imgs1: torch.Tensor,
+    times: torch.Tensor,
+    imu: ImuBatch,
+    fparams: FrontendParams,
+    mparams: MsckfParams,
+    fcfg: FrontendConfig,
+    mcfg: FilterConfig,
+    method: str = "schur",
+) -> Tuple[VioState, List[PoseOutput], List[FrameOutput]]:
+    """``batched_vio_step`` over T frames of B lanes, one Python step per
+    frame: images (B, T, H, W) per lane or (T, H, W) shared, ``times``
+    (B, T), ``imu`` (B, T, L, ...), all on the state's device.  Returns the
+    state after the last frame and the per-frame outputs (lists of length
+    T, each with a leading B)."""
+    poses, fronts = [], []
+    for k in range(times.shape[1]):
+        i0 = imgs0[k] if imgs0.dim() == 3 else imgs0[:, k]
+        i1 = imgs1[k] if imgs1.dim() == 3 else imgs1[:, k]
+        state, (pose, front) = batched_vio_step(
+            state, i0, i1, times[:, k], map_tree(lambda x: x[:, k], imu),
+            fparams, mparams, fcfg, mcfg, method,
+        )
+        poses.append(pose)
+        fronts.append(front)
+    return state, poses, fronts
+
+
+def stack_frames(outs):
+    """Per-frame outputs (each with a leading B) -> one tree (B, T, ...)."""
+    return type(outs[0])(*(torch.stack(list(x), dim=1) for x in zip(*outs)))
 
 
 def _on_device(x, dtype, device) -> torch.Tensor:
@@ -156,12 +234,12 @@ def run_vio_sequence(
     prev_frame_t: Optional[float] = None,
     device=None,
 ) -> VioResult:
-    """Host driver over an image sequence (reference per-image loop).
-    The images may be host arrays or tensors (a tensor already on the
-    device is used in place); ``chunk`` frames' images are resident on the
-    device at a time.  When resuming with ``state``, pass ``prev_frame_t``
-    = the last processed frame's time so the IMU samples between the calls
-    are packed."""
+    """Host driver over one image sequence (reference per-image loop), a
+    batch of one lane.  The images may be host arrays or tensors (a tensor
+    already on the device is used in place); ``chunk`` frames' images are
+    resident on the device at a time.  When resuming with ``state``, pass
+    ``prev_frame_t`` = the last processed frame's time so the IMU samples
+    between the calls are packed."""
     device = resolve_device(device)
     fcfg = dataclasses.replace(
         fcfg,
@@ -178,28 +256,28 @@ def run_vio_sequence(
         n0 = min(mcfg.imu_init_samples, imu_t.shape[0])
         state = state._replace(filt=apply_gravity_init(state.filt, imu_gyro[:n0], imu_acc[:n0]))
 
-    batches = pack_imu_batches(
+    batches = add_lane_axis(pack_imu_batches(
         imu_t, imu_gyro, imu_acc, frame_t, mcfg.max_imu_per_frame,
         prev_frame_t=prev_frame_t, device=device,
-    )
+    ))
     T = frame_t.shape[0]
     chunk = chunk or T
+    state = add_lane_axis(state)
     poses, fronts = [], []
     for s0 in range(0, T, chunk):
         s1 = min(s0 + chunk, T)
         imgs0 = _on_device(images0[s0:s1], image_dtype, device)
         imgs1 = _on_device(images1[s0:s1], image_dtype, device)
         times = torch.as_tensor(np.asarray(frame_t[s0:s1], np.float64), dtype=filter_dtype).to(device)
-        for k in range(s1 - s0):
-            imu = ImuBatch(*(x[s0 + k] for x in batches))
-            state, (pose, front) = vio_step(
-                state, imgs0[k], imgs1[k], times[k], imu, fparams, mparams, fcfg, mcfg, method
-            )
-            poses.append(pose)
-            fronts.append(front)
+        state, p, f = step_frames(
+            state, imgs0, imgs1, times[None], map_tree(lambda x: x[:, s0:s1], batches),
+            fparams, mparams, fcfg, mcfg, method,
+        )
+        poses += p
+        fronts += f
 
     def cat(objs, field):
-        return torch.stack([getattr(o, field) for o in objs]).cpu().numpy()
+        return torch.stack([getattr(o, field)[0] for o in objs]).cpu().numpy()
 
     return VioResult(
         times=cat(poses, "time"),
@@ -211,7 +289,7 @@ def run_vio_sequence(
             name: cat(fronts, name)
             for name in ("before_tracking", "after_tracking", "after_matching", "after_ransac")
         },
-        final_state=state,
+        final_state=drop_lane_axis(state),
         fid=cat(fronts, "fid"),
         uv=cat(fronts, "uv"),
         valid=cat(fronts, "valid"),

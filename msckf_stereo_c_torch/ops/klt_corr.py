@@ -30,6 +30,12 @@ the paths that launch them:
 Templates always come from the (P+3) window plus four bilinear terms, the
 formula the TPU ran; the template carried from the stereo call into the
 next temporal call depends on one formula for both.
+
+Batched sequences fold into the feature axis: the LK entry points take an
+image ``(H, W)`` or a stack ``(B, H, W)`` with an int32 ``img_index`` (N,)
+naming each feature's image, and every kernel still launches once per call
+for all B x N features.  A stack that broadcasts one image (stride 0) is
+read as that one image.
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from .patch_extract import extract_windows_reference, image_index_ptr, image_stack
+from .patch_extract import extract_windows_reference, image_index_ptr, image_stack, lane_images
 
 # Search radius beyond the window per level (klt_gemm.py:_SEARCH_RADIUS).
 _SEARCH_RADIUS = 9
@@ -493,17 +499,19 @@ def _k3_sc(tq: TemplateQ, f0, conv0) -> torch.Tensor:
     )
 
 
-def _align(img, org, S, tq: TemplateQ, f0, iters, eps, P, norm):
+def _align(img, org, S, tq: TemplateQ, f0, iters, eps, P, norm, img_index=None):
     """Converged window-origin coordinates f (N, 2) of one alignment whose
     (S, S) search windows lie at the integer-valued float origins ``org`` of
-    ``img``, in one launch: ``lk_corr_align`` for a two-surface norm,
-    ``lk_corr_align_gain`` for a three-surface one.  Lanes whose template
-    fails the quality gate start frozen."""
+    ``img`` (or of the images ``img_index`` of a stack), in one launch:
+    ``lk_corr_align`` for a two-surface norm, ``lk_corr_align_gain`` for a
+    three-surface one.  Lanes whose template fails the quality gate start
+    frozen."""
     filters = _filters_for_norm(tq, P, norm)
     hi = float(S - P - 1)
+    org = org.to(torch.int32)
     if len(filters) == 2:
-        return lk_corr_align(img, org.to(torch.int32), S, *filters, _k1_sc(tq, f0, ~tq.good), iters, eps, hi)
-    return lk_corr_align_gain(img, org.to(torch.int32), S, *filters, _k3_sc(tq, f0, ~tq.good), iters, eps, hi)
+        return lk_corr_align(img, org, S, *filters, _k1_sc(tq, f0, ~tq.good), iters, eps, hi, img_index)
+    return lk_corr_align_gain(img, org, S, *filters, _k3_sc(tq, f0, ~tq.good), iters, eps, hi, img_index)
 
 
 def _template_geometry(pts, P, H, W):
@@ -655,17 +663,21 @@ def stereo_anchor_lr_fused(
     anchor_radius: float = 2.0,
     norm: str = "none",
     anchor_norm: str | None = None,
+    img_index: torch.Tensor | None = None,
 ):
     """Fused full-resolution stereo fine level: optional anchor-template
     refinement of the first A lanes of ``pts0``, forward LK img0 -> img1 and
     the backward left-right round trip, sharing window extractions (see the
     JAX original for the geometry).  ``norm`` is the photometric norm of the
     forward and backward problems, ``anchor_norm`` (default ``norm``) the
-    anchor's.  Returns (pts0_out, anchor_accept (A,)
+    anchor's; ``img_index`` (N,) picks each feature's image pair out of
+    (B, H, W) stacks.  Returns (pts0_out, anchor_accept (A,)
     or None, KltResult forward, rt2 (N,) round-trip squared error, +inf
     where the backward track is invalid, forward templates (N, P+2, P+2),
     forward-template min_eig (N,))."""
-    H, W = img0.shape
+    H, W = img0.shape[-2:]
+    img0, idx0 = lane_images(img0, img_index)
+    img1, idx1 = lane_images(img1, img_index)
     P = win
     S = min(P + 2 * _SEARCH_RADIUS + 2, H, W)
     Sb = S + 2
@@ -688,7 +700,7 @@ def stereo_anchor_lr_fused(
         A = anchor_sp.shape[0]
         tqa = _template_quantities(anchor_sp, P, a_norm)
         f0a = pts0[:A] - c_off - sorg0[:A]
-        fa = _align(img0, sorg0[:A], S, tqa, f0a, iters, eps, P, a_norm)
+        fa = _align(img0, sorg0[:A], S, tqa, f0a, iters, eps, P, a_norm, None if idx0 is None else idx0[:A])
         pa = fa + c_off + sorg0[:A]
         oka = tqa.good & _inb(pa) & _inb(pts0[:A])
         corr2 = torch.sum((pa - pts0[:A]) ** 2, dim=1)
@@ -698,7 +710,7 @@ def stereo_anchor_lr_fused(
         )
 
     # Forward template at the refined positions (the carried-template path).
-    sp = extract_template(img0, pts0_out, P)
+    sp = extract_template(img0, pts0_out, P, idx0)
     tq = _template_quantities(sp, P, norm)
 
     # Forward search: the inner (S, S) part of an (S+2)-block at o1 whose
@@ -708,7 +720,7 @@ def stereo_anchor_lr_fused(
     o1 = _clip_xy(torch.floor(guess2) - (S // 2) - 1, 0.0, W - Sb, H - Sb)
     so = o1 + 1.0
     f0 = guess2 - c_off - so
-    f = _align(img1, so, S, tq, f0, iters, eps, P, norm)
+    f = _align(img1, so, S, tq, f0, iters, eps, P, norm, idx1)
     pts1 = f + c_off + so
     okf = tq.good & _inb(pts1) & _inb(pts0_out)
     res = KltResult(pts=pts1, valid=valid_in & okf)
@@ -716,10 +728,10 @@ def stereo_anchor_lr_fused(
     # Backward round trip: template resampled from the (S+2)-block at the
     # forward result, search in the img0 windows at sorg0 from the refined
     # cam0 position.
-    sp_b = resample_template(img1, pts1, o1.to(torch.int32), Sb, P)
+    sp_b = resample_template(img1, pts1, o1.to(torch.int32), Sb, P, idx1)
     tqb = _template_quantities(sp_b, P, norm)
     f0b = pts0_out - c_off - sorg0
-    fb = _align(img0, sorg0, S, tqb, f0b, iters, eps, P, norm)
+    fb = _align(img0, sorg0, S, tqb, f0b, iters, eps, P, norm, idx0)
     rt = fb + c_off + sorg0
     okb = tqb.good & _inb(rt) & _inb(pts1)
     rt2 = torch.where(
@@ -730,26 +742,29 @@ def stereo_anchor_lr_fused(
 
 def _track_level_corr(
     img_prev, img_curr, pts_prev, pts_curr0, win, iters, eps, final_level,
-    tmpl_sp=None, want_tmpl=False, norm="none",
+    tmpl_sp=None, want_tmpl=False, norm="none", img_index=None,
 ):
     """One pyramid level for all N features.  ``tmpl_sp`` skips template
     extraction; ``want_tmpl`` adds the templates to the return; ``norm`` is
-    the photometric norm (see ``_template_quantities``)."""
-    H, W = img_prev.shape
+    the photometric norm (see ``_template_quantities``); ``img_index`` (N,)
+    picks each feature's images out of (B, H, W) stacks."""
+    H, W = img_prev.shape[-2:]
+    img_prev, idx_prev = lane_images(img_prev, img_index)
+    img_curr, idx_curr = lane_images(img_curr, img_index)
     P = win
     S = min(win + 2 * _SEARCH_RADIUS + 2, H, W)
     T = P + 4
     if S < P + 2 or min(H, W) < T:
         out = pts_curr0, torch.ones(pts_curr0.shape[0], dtype=torch.bool, device=pts_curr0.device)
         return out + (tmpl_sp,) if want_tmpl else out
-    sp = tmpl_sp if tmpl_sp is not None else extract_template(img_prev, pts_prev, P)
+    sp = tmpl_sp if tmpl_sp is not None else extract_template(img_prev, pts_prev, P, idx_prev)
     tq = _template_quantities(sp, P, norm)
 
     sorg = _clip_xy(torch.floor(pts_curr0) - (S // 2), 0.0, W - S, H - S)
     # Window-origin coordinates, carried unclipped until the first update.
     c_off = (P - 1) / 2.0
     f0 = pts_curr0 - c_off - sorg
-    f = _align(img_curr, sorg, S, tq, f0, iters, eps, P, norm)
+    f = _align(img_curr, sorg, S, tq, f0, iters, eps, P, norm, idx_curr)
     pts = f + c_off + sorg
 
     if not final_level:
@@ -767,13 +782,14 @@ def optical_flow_lk_corr_l0(
     img_prev, img_curr, pts_prev, pts_curr_init, valid_in,
     win: int = 15, iters: int = 30, eps: float = 0.01,
     tmpl_sp=None, want_tmpl: bool = False, norm: str = "none",
+    img_index: torch.Tensor | None = None,
 ):
     """Single-level LK with template reuse: ``tmpl_sp`` (N, win+2, win+2)
     must come from an earlier ``want_tmpl=True`` call at the same (image,
     position) pairs.  Returns (KltResult, templates or None)."""
     pts, ok, sp = _track_level_corr(
         img_prev, img_curr, pts_prev, pts_curr_init, win, iters, eps, True,
-        tmpl_sp=tmpl_sp, want_tmpl=True, norm=norm,
+        tmpl_sp=tmpl_sp, want_tmpl=True, norm=norm, img_index=img_index,
     )
     res = KltResult(pts=pts, valid=valid_in & ok)
     return (res, sp) if want_tmpl else (res, None)
@@ -784,9 +800,11 @@ def optical_flow_pyr_lk_corr(
     pyr_curr: Sequence[torch.Tensor],
     pts_prev, pts_curr_init, valid_in,
     win: int = 15, iters: int = 30, eps: float = 0.01, norm: str = "none",
+    img_index: torch.Tensor | None = None,
 ) -> KltResult:
     """Pyramidal LK, coarse to fine (calcOpticalFlowPyrLK semantics with an
-    initial flow)."""
+    initial flow); ``img_index`` (N,) picks each feature's pyramid out of
+    (B, H, W) stacks."""
     L = len(pyr_prev)
     pts = pts_curr_init / 2.0 ** (L - 1)
     valid = valid_in
@@ -794,7 +812,7 @@ def optical_flow_pyr_lk_corr(
         s = 2.0**lvl
         pts, ok = _track_level_corr(
             pyr_prev[lvl], pyr_curr[lvl], pts_prev / s, pts, win, iters, eps, lvl == 0,
-            norm=norm,
+            norm=norm, img_index=img_index,
         )
         valid = valid & ok
         if lvl > 0:

@@ -20,6 +20,22 @@ import torch
 from . import _cuda
 
 
+def broadcast_image(img: torch.Tensor) -> torch.Tensor | None:
+    """The one image of a (B, H, W) stack whose lane axis is a broadcast
+    view (stride 0: one image shared by every lane), else None."""
+    if img.dim() == 3 and img.shape[0] > 1 and img.stride(0) == 0:
+        return img[0]
+    return None
+
+
+def lane_images(img: torch.Tensor, img_index: torch.Tensor | None):
+    """(image or stack, per-window image index) for a kernel call: a stack
+    that broadcasts one image becomes that image with no index, so a shared
+    image is never copied B times (``.contiguous()`` of the view would)."""
+    one = broadcast_image(img)
+    return (img, img_index) if one is None else (one, None)
+
+
 def image_stack(img: torch.Tensor) -> torch.Tensor:
     if img.dim() == 2:
         return img[None]

@@ -5,7 +5,9 @@ OpenCV pyrDown semantics: separable [1,4,6,4,1]/16 with REFLECT_101 borders,
 then factor-2 decimation to (n+1)//2.  The JAX package writes each 1-D pass
 as a dense banded GEMM because the TPU's matrix unit favours it; here each
 pass is five shifted adds over a reflect-padded view (``F.pad`` mode
-``"reflect"`` is REFLECT_101).  The values agree to f32 rounding."""
+``"reflect"`` is REFLECT_101).  The values agree to f32 rounding.  Images
+may carry leading axes ((..., H, W), one lane per sequence); each image is
+filtered on its own."""
 from __future__ import annotations
 
 from typing import List
@@ -22,15 +24,16 @@ def _blur_rows(p: torch.Tensor, n: int, step: int) -> torch.Tensor:
 
 
 def _blur2d(img: torch.Tensor, step: int) -> torch.Tensor:
-    H, W = img.shape[-2], img.shape[-1]
-    x = F.pad(img[None, None], (0, 0, 2, 2), mode="reflect")[0, 0]
+    lead, (H, W) = img.shape[:-2], img.shape[-2:]
+    x = F.pad(img.reshape(-1, 1, H, W), (0, 0, 2, 2), mode="reflect")
     x = _blur_rows(x, H, step)
-    x = F.pad(x[None, None], (2, 2, 0, 0), mode="reflect")[0, 0]
-    return _blur_rows(x.transpose(-1, -2), W, step).transpose(-1, -2)
+    x = F.pad(x, (2, 2, 0, 0), mode="reflect")
+    x = _blur_rows(x.transpose(-1, -2), W, step).transpose(-1, -2)
+    return x.reshape(lead + x.shape[-2:])
 
 
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
-    """(H, W) -> ((H+1)//2, (W+1)//2)."""
+    """(..., H, W) -> (..., (H+1)//2, (W+1)//2)."""
     return _blur2d(img, 2).contiguous()
 
 

@@ -55,3 +55,12 @@ def test_no_source_names_the_jax_package_in_code(path):
         tokens = tokenize.generate_tokens(io.StringIO(f.read()).readline)
         names = {t.string for t in tokens if t.type == tokenize.NAME}
     assert not names & {"msckf_stereo_c_tpu", "jax", "jaxlib"}, path
+
+
+def test_batched_entry_modules_are_covered():
+    """The batched-sequence runner and the benchmark entry point are among
+    the modules imported without JAX and scanned for its names above."""
+    new = {"msckf_stereo_c_torch.parallel.vio_multiseq", "msckf_stereo_c_torch.bench"}
+    assert new <= set(_port_modules())
+    paths = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {"msckf_stereo_c_torch/parallel/vio_multiseq.py", "msckf_stereo_c_torch/bench.py"} <= paths
