@@ -24,29 +24,37 @@ Phases, each of which fails the run (exit code 1) if it fails:
    frame); frames/s, ATE, tracks, host syncs;
 5. mode sweep: each ``klt_norm`` mode over 20 bench frames, with the exact
    launch split per frame it must give (``MODE_SPLIT``);
-6. profile: the last bench frames again, from the state the frames before
-   them leave, under ``torch.profiler``: device busy share and the kernels
-   that take the device time (``<out>/profile.txt``); then once more with
-   each stage of a frame timed;
-7. batched kernels: the four kernels of the main path on a B=4 image stack
+6. methods: the last METHOD_FRAMES bench frames from the state the frames
+   before them leave, under each filter method (``METHOD_RUNS``: 'qr',
+   'cholesky' and 'schur' with exact solves and 'schur' with 10
+   Newton-Schulz iterations in float32, 'qr' and 'cholesky' in float64):
+   ATE under 0.13 m, frames/s, host syncs by call site, launches exactly
+   7 / 4 / 1 a frame, the float64 methods within 1e-4 m of each other, and
+   ``run_vio_sequence(internals_at=INTERNALS_AT)`` with every key of the
+   dump and the poses of the run without it;
+7. profile: the last N_TAIL bench frames again, from the state the frames
+   before them leave, under ``torch.profiler``: device busy share and the
+   kernels that take the device time (``<out>/profile.txt``); then once
+   more with each stage of a frame timed;
+8. batched kernels: the four kernels of the main path on a B=4 image stack
    with a per-window image index, against their plain versions and against
    one launch per lane (bit-equal);
-8. distinct lanes: B=4 sequences of the bench scene, each starting at its
+9. distinct lanes: B=4 sequences of the bench scene, each starting at its
    own trajectory offset (rendered on the card), stepped together over
    DISTINCT_FRAMES frames by ``parallel/vio_multiseq.py:run_vio_batch``
    with the launch counts zeroed just before and read just after (the same
    7 / 4 / 1 per batched frame), against four one-lane runs: feature ids
    and validity equal on the first 10 frames, each lane's ATE within
    2e-4 m of its one-lane run;
-9. batch sweep: B in SWEEP_BATCHES with bench.py's semantics (images and
+10. batch sweep: B in SWEEP_BATCHES with bench.py's semantics (images and
    IMU shared, states broadcast from the state the first bench frames
    leave) over the last N_TAIL bench frames: aggregate frames/s, device
    busy share, device ops and host syncs per frame, peak device memory,
    launches per frame, and lane ATEs (at B=16 the worst lane within 1e-4 m
    of lane 0);
-10. entry point: ``python -m msckf_stereo_c_torch.bench`` at B=16 over 20
+11. entry point: ``python -m msckf_stereo_c_torch.bench`` at B=16 over 20
    frames, its one JSON line parsed;
-11. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
+12. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
    (721 stereo frames rendered on the card with every stress channel on,
    ``klt_norm='gain'``), launch counts zeroed just before and read just
    after (7 ``lk_corr_align_gain``, 4 ``extract_template``, 1
@@ -54,7 +62,15 @@ Phases, each of which fails the run (exit code 1) if it fails:
    and track bars,
    frames/s and render time; then the first STRESS_STAGE_SECONDS again with
    each stage timed and its host syncs counted;
-12. the card's name and power limit, the ``{"kernels": [...]}`` line, then
+13. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
+   ``sim/stress.py:run_stress_lanes`` run over STRESS_LANE_SECONDS of the
+   stress scene (``klt_norm='none'``; each lane its own landmarks, IMU
+   noise, photometric draws and images), launches 7 / 4 / 1 per batched
+   frame, against each seed's one-lane ``run_stress_gate``: ids and
+   validity equal on the first 10 frames; with the filter in float64 the
+   ATEs within 2e-4 m, in float32 (the stress script's dtype, whose batched
+   products round by batch shape) the ATE gap recorded;
+14. the card's name and power limit, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Details go to ``<out>/chip_smoke.json``.  The script imports nothing of JAX
@@ -86,12 +102,31 @@ K3_OPS_PER_STEP = 55
 K1_TOL = 0.02  # 2 * eps: a lane may freeze one (sub-eps) step apart
 SECTOR_BYTES = 32  # the least the card reads from memory at once
 FRAMES = 60  # main-path frames, 752x480 stereo (bench.py's scene)
-N_TAIL = 20  # last frames of the scene run again by the profile phase
+N_TAIL = 8  # last frames of the scene run again by the profile phase and the batch sweep
 SWEEP_FRAMES = 20  # bench frames per photometric mode in the mode sweep
 STRESS_SECONDS = 36.0  # the stress gate's short run (721 stereo frames)
 STRESS_STAGE_SECONDS = 12.0  # the stage-timed stress run (241 stereo frames)
 STACK_LANES = 4  # images in the stack of the batched-kernel checks
 DISTINCT_FRAMES = 30  # frames of the distinct-lane run
+# The filter methods over the last METHOD_FRAMES bench frames, from the state
+# the frames before them leave: the camera window is full there, so every
+# frame prunes, and lost tracks update the filter (the first 20 frames are
+# the 1.5 s rest, where neither runs).  (label, method, ns_iters, filter dtype)
+METHOD_FRAMES = 20
+METHOD_RUNS = (
+    ("qr", "qr", 0, "float32"), ("cholesky", "cholesky", 0, "float32"), ("schur ns0", "schur", 0, "float32"),
+    ("schur ns10", "schur", 10, "float32"), ("qr f64", "qr", 0, "float64"), ("cholesky f64", "cholesky", 0, "float64"),
+)
+INTERNALS_AT = 15  # the frame of the methods' run_vio_sequence(internals_at=...)
+# The keys of the JAX package's filter_internals, and the frontend's.
+INTERNAL_KEYS = (
+    "num_cams", "cam_q", "cam_p", "cov_diag", "candidate_idx", "candidate_fid", "candidate_use", "candidate_dof",
+    "n_lost_short", "n_candidates", "pos_w", "obs", "obs_mask", "H_x_blocks", "H_f_blocks", "r_blocks", "H_o",
+    "r_o", "rows_valid", "gamma_qr", "gamma_schur", "chi2_threshold", "gate_pass_qr", "gate_pass_schur",
+    "frontend_fid", "frontend_uv", "frontend_valid",
+)
+STRESS_LANE_SEEDS = (0, 1)  # robustness seeds of the stress-lane run
+STRESS_LANE_SECONDS = 6.0  # its length (121 stereo frames)
 # Lanes of the batch sweep: bench.py's B=16 and powers of four around it,
 # up to where the card, not the host, sets the batched frame's time.
 SWEEP_BATCHES = (1, 4, 16, 64, 256, 1024)
@@ -959,6 +994,169 @@ def phase_stress(card):
     return out
 
 
+def phase_methods(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
+    """Each filter method of METHOD_RUNS over the last METHOD_FRAMES bench
+    frames (B=1), from the state the frames before them leave (the main
+    configuration's): the filter in float32 under 'qr', 'cholesky' and
+    'schur' with exact solves and 'schur' with 10 Newton-Schulz iterations,
+    then 'qr' and 'cholesky' in float64 (the state cast).  Each run's ATE
+    under 0.13 m, frames/s, host syncs per frame by call site (one more run
+    in torch's sync debug mode) and launches, exactly 7 / 4 / 1 a frame;
+    the float64 methods within 1e-4 m of each other; and
+    ``run_vio_sequence(internals_at=INTERNALS_AT)`` under 'qr': every key
+    of the dump, poses equal to the same run without it."""
+    import numpy as np
+    import torch
+
+    from msckf_stereo_c_torch.config import EUROC_CALIB, FilterConfig
+    from msckf_stereo_c_torch.models.vio import run_vio_sequence
+    from msckf_stereo_c_torch.ops import _cuda
+    from msckf_stereo_c_torch.utils.lanes import map_tree
+
+    frame_t = traj.t[frame_idx]
+    k0 = frame_t.shape[0] - METHOD_FRAMES
+    T = METHOD_FRAMES
+    gt = traj.p[frame_idx[k0:]]
+    _, head = _resume_split(traj, imu, frame_idx, img0, img1, fcfg, mcfg, METHOD_FRAMES)
+    want = dict(COMMON_LAUNCHES, lk_corr_align=7, lk_corr_align_gain=0)
+
+    def cast(state, dtype):
+        filt = map_tree(lambda x: x.to(dtype) if x.is_floating_point() else x, state.filt)
+        return state._replace(filt=filt, prev_time=state.prev_time.to(dtype))
+
+    def runner(method, ns, dname):
+        dtype = getattr(torch, dname)
+        cfg = FilterConfig(ns_iters=ns, matmul_precision="tensorfloat32")
+
+        def run(n=T, **kw):
+            return run_vio_sequence(
+                fcfg, cfg, EUROC_CALIB, frame_t[k0:k0 + n], img0[k0:k0 + n], img1[k0:k0 + n], imu.t, imu.gyro,
+                imu.acc, image_dtype=torch.float32, filter_dtype=dtype, method=method, state=cast(head, dtype),
+                prev_frame_t=float(frame_t[k0 - 1]), device="cuda", **kw)
+
+        return run
+
+    runs, positions = {}, {}
+    for label, method, ns, dname in METHOD_RUNS:
+        run = runner(method, ns, dname)
+        run(2)  # warm-up: library handles and plans of this method's solves
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_cuda.launch_counts)
+        sites = package_sites(count_syncs(run))
+        pos = res.positions
+        check(bool(np.isfinite(pos).all()), f"methods: non-finite poses under {label}")
+        ate = _ate(frame_t[k0:], pos, gt)
+        runs[label] = dict(method=method, ns_iters=ns, dtype=dname, frames=T, seconds=secs, fps=T / secs,
+                           ate_rmse_m=ate, syncs_per_frame=sum(sites.values()) / T,
+                           sync_sites={k: v / T for k, v in sorted(sites.items(), key=lambda kv: -kv[1])},
+                           launches=counts)
+        positions[label] = pos
+        print(f"[methods] {label:13s} ({dname}): ATE {ate:.6f} m, {T / secs:.2f} frames/s over {T} frames (B=1), "
+              f"{runs[label]['syncs_per_frame']:.2f} host syncs/frame, launches/frame "
+              f"{ {k: v / T for k, v in counts.items() if v} } on {card}")
+        for site, per_frame in list(runs[label]["sync_sites"].items())[:4]:
+            print(f"[methods]   {per_frame:.2f}/frame at {site}")
+        check(ate < 0.13, f"methods: ATE {ate} m under {label} is above the 0.13 m bar")
+        check(counts == {k: v * T for k, v in want.items()},
+              f"methods: launches {counts} under {label}, expected per frame {want}")
+    f64 = [label for label, _, _, dname in METHOD_RUNS if dname == "float64"]
+    pairs = {}
+    for i, a in enumerate(f64):
+        for b in f64[i + 1:]:
+            d = float(np.linalg.norm(positions[a] - positions[b], axis=1).max())
+            pairs[f"{a} / {b}"] = d
+            print(f"[methods] {a} against {b}: positions within {d:.3e} m (bar 1e-4 m)")
+            check(d <= 1e-4, f"methods: {a} and {b} differ by {d} m (> 1e-4 m)")
+
+    label, method, ns, dname = METHOD_RUNS[0]
+    res = runner(method, ns, dname)(internals_at=INTERNALS_AT)
+    d = res.internals or {}
+    missing = sorted(set(INTERNAL_KEYS) - set(d))
+    moved = float(np.abs(res.positions - positions[label]).max())
+    n_used = int(np.sum(d.get("candidate_use", 0)))
+    print(f"[methods] internals_at={INTERNALS_AT} under {label}: {len(d)} keys ({n_used} used candidates, "
+          f"{int(np.sum(d.get('gate_pass_qr', 0)))} pass the gate), poses {moved:.3e} m from the run without it")
+    check(not missing, f"methods: the internals lack {missing}")
+    check(moved == 0.0, f"methods: internals_at moved the poses by {moved} m")
+    return dict(runs=runs, f64_pairs_m=pairs, internals=dict(keys=sorted(d), used_candidates=n_used,
+                                                             pose_change_m=moved))
+
+
+def phase_stress_lanes(card):
+    """Robustness seeds STRESS_LANE_SEEDS as the lanes of one batched
+    ``run_stress_lanes`` over STRESS_LANE_SECONDS of the stress scene with
+    klt_norm='none' (each lane its own landmarks, IMU noise, photometric
+    draws and images, rendered on the card), with the launch counts zeroed
+    just before and read just after (7 / 4 / 1 per batched frame); then
+    each seed's one-lane ``run_stress_gate``: feature ids and validity equal
+    on the first 10 frames.  Once with the filter in float64, where the
+    lanes' ATEs must be within 2e-4 m of the one-lane runs', and once in
+    float32, the stress script's dtype, where the filter's batched products
+    round by batch shape (ROADMAP.md, Queue 3) and the ATE gap is
+    recorded."""
+    import numpy as np
+    import torch
+
+    from msckf_stereo_c_torch.config import FilterConfig, FrontendConfig
+    from msckf_stereo_c_torch.ops import _cuda
+    from msckf_stereo_c_torch.sim import stress
+
+    seeds = list(STRESS_LANE_SEEDS)
+    want = dict(COMMON_LAUNCHES, lk_corr_align=7, lk_corr_align_gain=0)
+    out = {}
+    for dname in ("float64", "float32"):
+        kw = dict(fcfg=FrontendConfig(klt_norm="none"),
+                  mcfg=FilterConfig(ns_iters=10, matmul_precision="tensorfloat32"), method="schur",
+                  duration=STRESS_LANE_SECONDS, filter_dtype=getattr(torch, dname))
+        if not out:
+            stress.run_stress_lanes(seeds, **dict(kw, duration=1.0))  # warm-up at these shapes
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        lanes = stress.run_stress_lanes(seeds, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_cuda.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        T = lanes[0].n_frames
+        check(counts == {k: v * T for k, v in want.items()},
+              f"stress lanes ({dname}): launches {counts}, expected per batched frame {want}")
+        per_lane = []
+        t1 = time.perf_counter()
+        for seed, got in zip(seeds, lanes):
+            alone = stress.run_stress_gate(seed=seed, lm_seed=stress.protocol_lm_seed(seed), **kw)
+            same = (got.result.fid == alone.result.fid).all(-1) & (got.result.valid == alone.result.valid).all(-1)
+            parts = int(np.argmin(same)) if not same.all() else None
+            gap = abs(got.ate_rmse - alone.ate_rmse)
+            per_lane.append(dict(seed=seed, ate_batched_m=got.ate_rmse, ate_alone_m=alone.ate_rmse, ate_gap_m=gap,
+                                 ate_max_m=got.ate_max, min_tracks=got.min_tracks_after_ransac,
+                                 first_frame_ids_part=parts))
+            print(f"[stress-lanes] {dname} seed {seed}: ATE {got.ate_rmse:.6f} m batched, {alone.ate_rmse:.6f} m "
+                  f"alone ({gap:.2e} m apart); ids and validity "
+                  f"{'equal on every frame' if parts is None else f'part at frame {parts}'}; "
+                  f"min tracks {got.min_tracks_after_ransac}")
+            check(bool(np.isfinite(got.result.positions).all()), f"stress lanes: non-finite poses, seed {seed}")
+            check(parts is None or parts >= 10,
+                  f"stress lanes ({dname}): seed {seed} ids differ from its one-lane run at frame {parts}")
+            if dname == "float64":
+                check(gap <= 2e-4, f"stress lanes: seed {seed} ATE {got.ate_rmse} m batched vs {alone.ate_rmse} m "
+                                   f"alone (> 2e-4 m apart)")
+        alone_s = time.perf_counter() - t1
+        print(f"[stress-lanes] {dname}: {len(seeds)} lanes x {T} frames in {secs:.3f} s "
+              f"({len(seeds) * T / secs:.2f} frames/s aggregate, rendering included) against {alone_s:.3f} s for "
+              f"the one-lane runs; peak {peak:.3f} GB; launches per batched frame "
+              f"{ {k: v // T for k, v in counts.items()} } on {card}")
+        out[dname] = dict(seeds=seeds, frames=T, seconds=secs, fps=len(seeds) * T / secs,
+                          seconds_one_lane_runs=alone_s, peak_memory_gb=peak, launches=counts, per_lane=per_lane)
+    return out
+
+
 def _resume_split(traj, imu, frame_idx, img0, img1, fcfg, mcfg, n_tail):
     """Runs all but the last ``n_tail`` frames and returns a function that
     runs those last frames from the state they leave (the tracker and the
@@ -1432,6 +1630,7 @@ def main(argv=None) -> int:
     stack_rows = timed("kernels on a stack", phase_stack_kernels, img0, fcfg)
     main_out = timed("main path", phase_main_path, traj, imu, frame_idx, img0, img1, fcfg, mcfg, card)
     sweep_out = timed("mode sweep", phase_mode_sweep, traj, imu, frame_idx, img0, img1, mcfg)
+    methods_out = timed("methods", phase_methods, traj, imu, frame_idx, img0, img1, fcfg, mcfg, card)
     os.makedirs(args.out, exist_ok=True)
     tail, head_state = timed("head", _resume_split, traj, imu, frame_idx, img0, img1, fcfg, mcfg, N_TAIL)
     prof_out = timed("profile", phase_profile, tail, N_TAIL, args.out)
@@ -1440,6 +1639,7 @@ def main(argv=None) -> int:
     batch_out = timed("batch sweep", phase_batch_sweep, scene, head_state, fcfg, mcfg, card, args.out)
     entry_out = timed("entry point", phase_entry_point, card)
     stress_out = timed("stress path", phase_stress, card)
+    stress_lanes_out = timed("stress lanes", phase_stress_lanes, card)
 
     pick = {
         "lk_corr_align": next(r for r in rows if r["name"] == "lk_corr_align" and r["level"] == 0
@@ -1470,7 +1670,8 @@ def main(argv=None) -> int:
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": name, "build_seconds": build["seconds"],
                    "build_logs": build["logs"], "kernel_rows": rows, "stack_kernel_rows": stack_rows,
-                   "main_path": main_out, "mode_sweep": sweep_out, "profile": prof_out, "stages": stage_out,
+                   "main_path": main_out, "mode_sweep": sweep_out, "methods": methods_out, "profile": prof_out,
+                   "stages": stage_out, "stress_lanes": stress_lanes_out,
                    "distinct_lanes": lanes_out, "batch_sweep": batch_out, "entry_point": entry_out,
                    "stress_path": stress_out, "phase_seconds": phase_seconds, "seconds": time.time() - t_start},
                   f, indent=1)

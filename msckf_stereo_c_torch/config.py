@@ -144,7 +144,7 @@ class FilterConfig:
     max_imu_per_frame: int = 16
     imu_init_samples: int = 200
     max_update_tracks: int = 32
-    # 0 = exact factorizations (not ported yet); >0 = Newton-Schulz solves.
+    # 0 = exact factorizations; >0 = Newton-Schulz solves.
     ns_iters: int = 0
     noise_adaptive: bool = False  # SNR-adaptive observation noise (msckf._snr_weights)
     noise_snr_ref: float = 40.0

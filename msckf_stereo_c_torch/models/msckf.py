@@ -1,5 +1,7 @@
 """The stereo MSCKF filter step (port of ``msckf_stereo_c_tpu/models/
-msckf.py``, Schur method with Newton-Schulz solves).
+msckf.py``): methods 'qr', 'cholesky' and 'schur', exact solves
+(``ns_iters == 0``) or Newton-Schulz ones, and the differential-debug dump
+``filter_internals``.
 
 propagate -> augment -> observe -> remove lost features (triangulate, gate,
 update) -> prune two camera states when the window is full -> publish ->
@@ -17,23 +19,28 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..config import FilterConfig, StereoCalib, matmul_precision_scope
+from ..config import FilterConfig, StereoCalib, matmul_precision_scope, resolve_device
 from ..utils.chi2 import chi2_p95_table
 from ..utils.lanes import add_lane_axis, at_slot, drop_lane_axis, take, where_lanes
 from ..utils.quaternion import jpl_to_rot, rot_to_jpl
 from .augmentation import add_feature_observations, augment_state
 from .propagation import ImuBatch, batched_propagate
 from .pruning import compact_after_removal, find_redundant_cam_slots
-from .state import FilterState, continuous_noise_cov, initial_cov_diag
+from .state import FilterState, continuous_noise_cov, init_filter_state, initial_cov_diag
 from .triangulation import check_motion_tracks, triangulate_tracks
 from .update import (
     cam_cov_blocks,
+    gating_scores,
+    measurement_update,
     measurement_update_schur,
     measurement_update_schur_compact,
     schur_gating,
     schur_gating_compact,
     track_blocks,
+    track_jacobians,
 )
+
+METHODS = ("qr", "cholesky", "schur")
 
 
 class FrameFeatures(NamedTuple):
@@ -76,18 +83,17 @@ class PoseOutput(NamedTuple):
 
 
 def check_supported(cfg: FilterConfig, method: str) -> None:
-    """Raise NotImplementedError for a filter configuration not ported yet."""
-    unsupported = [
-        ("method", method != "schur"),
-        ("ns_iters", cfg.ns_iters == 0),
-    ]
-    for name, bad in unsupported:
-        if bad:
-            value = method if name == "method" else getattr(cfg, name)
-            raise NotImplementedError(
-                f"the PyTorch port covers the Schur filter with Newton-Schulz "
-                f"solves only; {name}={value!r} is not ported yet"
-            )
+    """Raise for a filter configuration the port does not run: an unknown
+    method or a negative ``ns_iters`` (ValueError), a precision name with
+    no PyTorch counterpart (NotImplementedError)."""
+    if method not in METHODS:
+        raise ValueError(f"unknown filter method {method!r}; expected one of {METHODS}")
+    if cfg.ns_iters < 0:
+        raise ValueError(f"ns_iters={cfg.ns_iters} must be >= 0 (0 = exact factorizations)")
+    if cfg.matmul_precision in ("bfloat16", "bfloat16_3x"):
+        raise NotImplementedError(
+            f"matmul_precision={cfg.matmul_precision!r} has no PyTorch counterpart in the port"
+        )
 
 
 def make_params(cfg: FilterConfig, calib: StereoCalib, dtype=torch.float64, device=None) -> MsckfParams:
@@ -134,14 +140,34 @@ def _snr_weights(quality: torch.Tensor, obs_mask: torch.Tensor, cfg: FilterConfi
 
 
 def _gate_and_update(
-    state: FilterState, params: MsckfParams, pos, obs, obs_mask, use, dof,
-    cam_idx=None, ns_iters: int = 10, w=None,
+    state: FilterState, params: MsckfParams, method: str, pos, obs, obs_mask, use, dof,
+    max_update: int = 0, cam_idx=None, ns_iters: int = 0, w=None,
 ) -> FilterState:
-    """Chi-square gate and Schur EKF update over the selected tracks of each
-    lane (B, K); ``cam_idx`` (B, Mc) runs the whole gate and update
-    camera-compacted.  ``w`` (B, K), from ``_snr_weights``, scales each
-    track's Jacobian blocks and residuals by sqrt(w), which makes the
-    base-noise formulas the per-track-noise gate and update exactly."""
+    """Chi-square gate and compressed EKF update over the selected tracks of
+    each lane (B, K).
+
+    method='qr'/'cholesky': explicit nullspace projection, then dense
+    compression (reference-faithful).  method='schur': feature-marginalized
+    information accumulation, no QR; ``cam_idx`` (B, Mc) runs its whole gate
+    and update camera-compacted.  ``max_update > 0`` keeps each lane's
+    first ``max_update`` selected tracks (stable) before any Jacobian work.
+    ``w`` (B, K), from ``_snr_weights``, scales each track's rows and
+    residuals by sqrt(w), which makes the base-noise formulas the
+    per-track-noise gate and update exactly."""
+    if max_update and max_update < use.shape[1]:
+        idx = _compact_candidates(use, max_update)
+        pos, obs, obs_mask, use, dof = (take(x, idx) for x in (pos, obs, obs_mask, use, dof))
+        if w is not None:
+            w = take(w, idx)
+    sw = None if w is None else torch.sqrt(w).to(pos.dtype)
+    if method != "schur":
+        jacs = track_jacobians(pos, obs, obs_mask, state.cams, state.gravity, params.R_c0_c1, params.t_c0_c1)
+        if sw is not None:
+            jacs = jacs._replace(H_o=jacs.H_o * sw[..., None, None], r_o=jacs.r_o * sw[..., None])
+        gamma = gating_scores(jacs, state.P, params.sigma2)
+        use = use & (gamma < params.chi2_table[dof])
+        return measurement_update(state, jacs, use, params.sigma2, method=method)
+
     cams = state.cams
     if cam_idx is not None:
         cams = cams._replace(
@@ -149,13 +175,8 @@ def _gate_and_update(
             q_null=take(cams.q_null, cam_idx), p_null=take(cams.p_null, cam_idx),
         )
     blocks = track_blocks(pos, obs, obs_mask, cams, state.gravity, params.R_c0_c1, params.t_c0_c1)
-    if w is not None:
-        sw = torch.sqrt(w).to(blocks.H_x.dtype)
-        blocks = blocks._replace(
-            H_x=blocks.H_x * sw[..., None, None, None],
-            H_f=blocks.H_f * sw[..., None, None, None],
-            r=blocks.r * sw[..., None, None],
-        )
+    if sw is not None:
+        blocks = _weighted(blocks, sw)
     if cam_idx is not None:
         Pc = cam_cov_blocks(state.P, cam_idx)
         gamma = schur_gating_compact(blocks, Pc, params.sigma2, ns_iters)
@@ -164,6 +185,15 @@ def _gate_and_update(
     gamma = schur_gating(blocks, state.P, params.sigma2, ns_iters)
     use = use & (gamma < params.chi2_table[dof])
     return measurement_update_schur(state, blocks, use, params.sigma2, ns_iters)
+
+
+def _weighted(blocks, sw):
+    """Blocks of each track scaled by its sqrt weight ``sw`` (B, K)."""
+    return blocks._replace(
+        H_x=blocks.H_x * sw[..., None, None, None],
+        H_f=blocks.H_f * sw[..., None, None, None],
+        r=blocks.r * sw[..., None, None],
+    )
 
 
 def _compact_candidates(candidates: torch.Tensor, max_update: int) -> torch.Tensor:
@@ -212,7 +242,7 @@ def _lost_candidates(state: FilterState, params: MsckfParams, max_update: int = 
     return idx, obs_c, obs_valid_c, use, dof, pos, drop_only, candidates
 
 
-def _remove_lost_features(state: FilterState, params: MsckfParams, cfg: FilterConfig) -> FilterState:
+def _remove_lost_features(state: FilterState, params: MsckfParams, cfg: FilterConfig, method: str) -> FilterState:
     """Triangulate and update with the tracks that lost tracking this frame
     (reference removeLostFeatures)."""
     idx, obs_c, obs_valid_c, use, dof, pos, drop_only, candidates = _lost_candidates(
@@ -220,7 +250,7 @@ def _remove_lost_features(state: FilterState, params: MsckfParams, cfg: FilterCo
     )
     w = _snr_weights(take(state.tracks.quality, idx), obs_valid_c, cfg) if cfg.noise_adaptive else None
     state = _gate_and_update(
-        state, params, pos, obs_c, obs_valid_c & use[..., None], use, dof, ns_iters=cfg.ns_iters, w=w
+        state, params, method, pos, obs_c, obs_valid_c & use[..., None], use, dof, ns_iters=cfg.ns_iters, w=w
     )
     gone = drop_only | candidates
     tracks = state.tracks._replace(
@@ -231,11 +261,14 @@ def _remove_lost_features(state: FilterState, params: MsckfParams, cfg: FilterCo
     return state._replace(tracks=tracks)
 
 
-def _prune_cam_states(state: FilterState, params: MsckfParams, cfg: FilterConfig, lanes=None) -> FilterState:
+def _prune_cam_states(
+    state: FilterState, params: MsckfParams, cfg: FilterConfig, method: str, lanes=None
+) -> FilterState:
     """Marginalize two redundant camera states per lane (reference
-    pruneCamStateBuffer), gate and update camera-compacted to the two
-    slots.  ``lanes`` (B,) names the lanes whose result is kept (the LM
-    steps run only there; all lanes when None)."""
+    pruneCamStateBuffer).  The Schur method gates and updates
+    camera-compacted to the two slots; 'qr' and 'cholesky' full-width.
+    ``lanes`` (B,) names the lanes whose result is kept (the LM steps run
+    only there; all lanes when None)."""
     tracks = state.tracks
     M = tracks.obs_valid.shape[2]
     dev = state.P.device
@@ -257,14 +290,22 @@ def _prune_cam_states(state: FilterState, params: MsckfParams, cfg: FilterConfig
     use = cand_k & init_ok
     dof = torch.clamp(take(involved, idx), 1, 99)
     mask_k = take(involved_mask, idx)
-    mask_c = torch.take_along_dim(mask_k & use[..., None], cam_idx[:, None, :], dim=2)
-    obs_c = torch.take_along_dim(obs_k, cam_idx[:, None, :, None], dim=2)
     # The weight comes from the observations this update consumes (the two
     # pruned slots).
     w = _snr_weights(take(tracks.quality, idx), mask_k, cfg) if cfg.noise_adaptive else None
-    state = _gate_and_update(
-        state, params, pos, obs_c, mask_c, use, dof, cam_idx=cam_idx, ns_iters=cfg.ns_iters, w=w,
-    )
+    if method == "schur":
+        # Every used observation lives in the two pruned slots: (K, 8, 8)
+        # gating systems and a rank-12 update instead of (K, 4M, 4M) and
+        # a (D, D) one.
+        mask_c = torch.take_along_dim(mask_k & use[..., None], cam_idx[:, None, :], dim=2)
+        obs_c = torch.take_along_dim(obs_k, cam_idx[:, None, :, None], dim=2)
+        state = _gate_and_update(
+            state, params, method, pos, obs_c, mask_c, use, dof, cam_idx=cam_idx, ns_iters=cfg.ns_iters, w=w,
+        )
+    else:
+        state = _gate_and_update(
+            state, params, method, pos, obs_k, mask_k & use[..., None], use, dof, ns_iters=cfg.ns_iters, w=w,
+        )
 
     # Persist positions of tracks initialized here; delete the involved
     # observations from every track.
@@ -316,13 +357,27 @@ def _publish(state: FilterState, time, params: MsckfParams) -> PoseOutput:
     )
 
 
+def _propagate_augment_observe(state: FilterState, frame: FrameFeatures, imu: ImuBatch, params: MsckfParams):
+    """Shared front half of ``batched_filter_step`` and ``filter_internals``:
+    the time origin on each lane's first frame, IMU propagation, state
+    augmentation and observation bookkeeping."""
+    first = state.next_sid == 0
+    state = state._replace(imu=state.imu._replace(time=torch.where(first, frame.time, state.imu.time)))
+    state = batched_propagate(state, imu, params.Q_imu)
+    state = augment_state(state, frame.time)
+    quality = frame.quality
+    if quality is None:
+        quality = torch.zeros_like(frame.uv[..., 0])
+    return add_feature_observations(state, frame.fid, frame.uv, frame.valid, quality)
+
+
 def filter_step(
     state: FilterState,
     frame: FrameFeatures,
     imu: ImuBatch,
     params: MsckfParams,
     cfg: FilterConfig,
-    method: str = "schur",
+    method: str = "qr",
 ):
     """One frame of one sequence's back-end: the one-lane view of
     ``batched_filter_step``.  Returns (state, PoseOutput)."""
@@ -338,7 +393,7 @@ def batched_filter_step(
     imu: ImuBatch,
     params: MsckfParams,
     cfg: FilterConfig,
-    method: str = "schur",
+    method: str = "qr",
 ):
     """One frame of the back-end of B sequences: ``state``, ``frame`` and
     ``imu`` with a leading lane axis.  The camera prune is JAX's ``lax.cond``
@@ -347,20 +402,90 @@ def batched_filter_step(
     lanes only.  Returns (state, PoseOutput)."""
     check_supported(cfg, method)
     with matmul_precision_scope(cfg.matmul_precision):
-        first = state.next_sid == 0
-        state = state._replace(
-            imu=state.imu._replace(time=torch.where(first, frame.time, state.imu.time))
-        )
-        state = batched_propagate(state, imu, params.Q_imu)
-        state = augment_state(state, frame.time)
-        quality = frame.quality
-        if quality is None:
-            quality = torch.zeros_like(frame.uv[..., 0])
-        state = add_feature_observations(state, frame.fid, frame.uv, frame.valid, quality)
-        state = _remove_lost_features(state, params, cfg)
+        state = _propagate_augment_observe(state, frame, imu, params)
+        state = _remove_lost_features(state, params, cfg, method)
         full = state.num_cams >= cfg.max_cam_state_size
         if bool(torch.any(full)):  # one host read per frame, for every lane
-            state = where_lanes(full, _prune_cam_states(state, params, cfg, full), state)
+            state = where_lanes(full, _prune_cam_states(state, params, cfg, method, full), state)
         out = _publish(state, frame.time, params)
         state = _online_reset(state, params)
         return state, out
+
+
+def filter_internals(
+    state: FilterState,
+    frame: FrameFeatures,
+    imu: ImuBatch,
+    params: MsckfParams,
+    cfg: FilterConfig,
+    method: str = "qr",
+) -> dict:
+    """Differential-debug dump of one sequence's frame (the analog of the
+    reference's frame-9 Jacobian dump): from the filter state *before* the
+    frame, replays propagation, augmentation and observation bookkeeping
+    and returns, without advancing any state, every tensor the lost-track
+    update would consume: candidate tracks, triangulated positions, the
+    OC-projected Jacobian blocks, the nullspace-projected rows, and the
+    gating scores of both algebras against their chi-square thresholds.
+    The keys are the JAX package's."""
+    check_supported(cfg, method)
+    with matmul_precision_scope(cfg.matmul_precision):
+        state = _propagate_augment_observe(
+            add_lane_axis(state), add_lane_axis(frame), add_lane_axis(imu), params
+        )
+        idx, obs_c, obs_valid_c, use, dof, pos, drop_only, candidates = _lost_candidates(
+            state, params, cfg.max_update_tracks
+        )
+        obs_mask = obs_valid_c & use[..., None]
+        args = (pos, obs_c, obs_mask, state.cams, state.gravity, params.R_c0_c1, params.t_c0_c1)
+        blocks, jacs = track_blocks(*args), track_jacobians(*args)
+        if cfg.noise_adaptive:
+            # Mirror the live filter's SNR weighting in the dumped tensors.
+            sw = torch.sqrt(_snr_weights(take(state.tracks.quality, idx), obs_valid_c, cfg)).to(pos.dtype)
+            blocks = _weighted(blocks, sw)
+            jacs = jacs._replace(H_o=jacs.H_o * sw[..., None, None], r_o=jacs.r_o * sw[..., None])
+        gamma_qr = gating_scores(jacs, state.P, params.sigma2)
+        gamma_schur = schur_gating(blocks, state.P, params.sigma2, cfg.ns_iters)
+        thresh = params.chi2_table[dof]
+        out = {
+            "num_cams": state.num_cams,
+            "cam_q": state.cams.q,
+            "cam_p": state.cams.p,
+            "cov_diag": torch.diagonal(state.P, dim1=-2, dim2=-1),
+            "candidate_idx": idx.to(torch.int32),
+            "candidate_fid": take(state.tracks.fid, idx),
+            "candidate_use": use,
+            "candidate_dof": dof,
+            "n_lost_short": torch.sum(drop_only, dim=1),
+            "n_candidates": torch.sum(candidates, dim=1),
+            "pos_w": pos,
+            "obs": obs_c,
+            "obs_mask": obs_mask,
+            "H_x_blocks": blocks.H_x,
+            "H_f_blocks": blocks.H_f,
+            "r_blocks": blocks.r,
+            "H_o": jacs.H_o,
+            "r_o": jacs.r_o,
+            "rows_valid": jacs.rows_valid,
+            "gamma_qr": gamma_qr,
+            "gamma_schur": gamma_schur,
+            "chi2_threshold": thresh,
+            "gate_pass_qr": use & (gamma_qr < thresh),
+            "gate_pass_schur": use & (gamma_schur < thresh),
+        }
+        return {k: v[0] for k, v in out.items()}
+
+
+def init_state(cfg: FilterConfig, calib: StereoCalib, dtype=torch.float64, device=None) -> FilterState:
+    """One sequence's initial filter state on ``device`` (the CUDA card when
+    None; raises without CUDA unless a device is named)."""
+    return init_filter_state(cfg, calib, dtype, resolve_device(device))
+
+
+def reset_filter(state: FilterState, cfg: FilterConfig, calib: StereoCalib) -> FilterState:
+    """Full manual reset (reference resetCallback): the state and covariance
+    rebuilt from the configuration on the state's device and dtype, with
+    cameras, tracks and timing cleared; only gravity is kept.  The sequence
+    drivers never call it."""
+    fresh = init_filter_state(cfg, calib, state.P.dtype, state.P.device)
+    return fresh._replace(gravity=state.gravity)

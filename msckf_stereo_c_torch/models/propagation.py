@@ -1,13 +1,15 @@
 """IMU process model: RK4 state propagation and observability-constrained
 covariance propagation over a fixed per-frame IMU batch (port of
-``msckf_stereo_c_tpu/models/propagation.py:propagate``).
+``msckf_stereo_c_tpu/models/propagation.py``).
 
 Invalid slots have ``dt = 0``, which makes their step an exact no-op.  The
 per-sample work is batched over the L slots once the quaternion prefix is
 known; the two associative products (the quaternion prefix and the (Phi, Q)
 composition) run as log-depth doubling passes of batched matmuls in place of
 JAX's ``associative_scan``.  Every lane of a batched state propagates on
-its own samples.
+its own samples.  ``propagate_sequential`` and ``process_model_step`` are
+the sample-by-sample reference (reference processModel) that the batched
+form is held against; they are not on the frame path.
 """
 from __future__ import annotations
 
@@ -213,4 +215,165 @@ def batched_propagate(state: FilterState, batch: ImuBatch, Q_imu: torch.Tensor) 
         p_null=torch.where(any_stepped, p_end[:, -1], imu0.p_null),
         time=torch.where(any_stepped[:, 0], run_max[:, -1], imu0.time),
     )
+    return _apply_propagation(state, imu, Phi_acc, Q_acc)
+
+
+def _predict_new_state(imu: ImuState, dt, gyro, acc, gravity):
+    """RK4 on (q, v, p) with closed-form quaternion integration of each
+    lane's sample (reference predictNewState); every input has a leading
+    lane axis B."""
+    dtype, dev = imu.q.dtype, imu.q.device
+    B = gyro.shape[0]
+    gyro_norm = torch.linalg.norm(gyro, dim=-1)
+    Omega = torch.zeros((B, 4, 4), dtype=dtype, device=dev)
+    Omega[:, :3, :3] = -skew(gyro)
+    Omega[:, :3, 3] = gyro
+    Omega[:, 3, :3] = -gyro
+    eye4 = torch.eye(4, dtype=dtype, device=dev)
+    big = (gyro_norm > 1e-5)[:, None, None]
+    safe_norm = torch.where(gyro_norm > 1e-5, gyro_norm, 1.0)
+
+    def dq_at(frac):
+        ang = (gyro_norm * dt * frac)[:, None, None]
+        m_big = torch.cos(ang) * eye4 + torch.sin(ang) / safe_norm[:, None, None] * Omega
+        m_small = (eye4 + (2.0 * frac * dt * 0.5)[:, None, None] * Omega) * torch.cos(ang)
+        return (torch.where(big, m_big, m_small) @ imu.q[..., None])[..., 0]
+
+    def rot_T(q):
+        return jpl_to_rot(q).transpose(-1, -2)
+
+    def mv(R, x):
+        return (R @ x[..., None])[..., 0]
+
+    dq_dt = dq_at(0.5)
+    dR_dt_T = rot_T(quat_normalize(dq_dt))
+    dR_dt2_T = rot_T(quat_normalize(dq_at(0.25)))
+    h = dt[:, None]
+    k1_v_dot = mv(rot_T(imu.q), acc) + gravity
+    k1_p_dot = imu.v
+    k1_v = imu.v + k1_v_dot * h / 2
+    k2_v_dot = mv(dR_dt2_T, acc) + gravity
+    k2_p_dot = k1_v
+    k2_v = imu.v + k2_v_dot * h / 2
+    k3_v_dot = mv(dR_dt2_T, acc) + gravity
+    k3_p_dot = k2_v
+    k3_v = imu.v + k3_v_dot * h
+    k4_v_dot = mv(dR_dt_T, acc) + gravity
+    k4_p_dot = k3_v
+    v_new = imu.v + h / 6 * (k1_v_dot + 2 * k2_v_dot + 2 * k3_v_dot + k4_v_dot)
+    p_new = imu.p + h / 6 * (k1_p_dot + 2 * k2_p_dot + 2 * k3_p_dot + k4_p_dot)
+    return quat_normalize(dq_dt), v_new, p_new
+
+
+def _imu_step(imu: ImuState, t, m_gyro, m_acc, Q_imu, gravity, valid, dt_packed=None):
+    """Nominal-state RK4 step and the 21x21 (Phi, Q) pair of one sample of
+    each lane (leading axis B).  ``dt_packed`` holds host-exact deltas (< 0
+    = derive from the state clock); without it the delta is t - state
+    time.  A masked or non-increasing sample leaves everything unchanged,
+    the FEJ shadows included."""
+    dtype, dev = imu.q.dtype, imu.q.device
+    B = t.shape[0]
+    gyro = m_gyro - imu.bg
+    acc = m_acc - imu.ba
+    dt_raw = t - imu.time if dt_packed is None else torch.where(dt_packed < 0, t - imu.time, dt_packed)
+    stepped = valid & (dt_raw > 0)
+    dt = torch.where(stepped, dt_raw, 0.0)
+
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    R_wi_T = jpl_to_rot(imu.q).transpose(-1, -2)
+    F = torch.zeros((B, 21, 21), dtype=dtype, device=dev)
+    F[:, 0:3, 0:3] = -skew(gyro)
+    F[:, 0:3, 3:6] = -eye3
+    F[:, 6:9, 0:3] = -R_wi_T @ skew(acc)
+    F[:, 6:9, 9:12] = -R_wi_T
+    F[:, 12:15, 6:9] = eye3
+    G = torch.zeros((B, 21, 12), dtype=dtype, device=dev)
+    G[:, 0:3, 0:3] = -eye3
+    G[:, 3:6, 3:6] = eye3
+    G[:, 6:9, 6:9] = -R_wi_T
+    G[:, 9:12, 9:12] = eye3
+
+    # 3rd-order matrix-exponential approximation of Phi.
+    Fdt = F * dt[:, None, None]
+    Fdt2 = Fdt @ Fdt
+    Phi = torch.eye(21, dtype=dtype, device=dev) + Fdt + 0.5 * Fdt2 + (1.0 / 6.0) * (Fdt2 @ Fdt)
+
+    q_new, v_new, p_new = _predict_new_state(imu, dt, gyro, acc, gravity)
+
+    # Observability-constrained rows {0, 6, 12} against the FEJ shadows.
+    g = gravity[..., None]
+    R_kk_1 = jpl_to_rot(imu.q_null)
+    Phi[:, 0:3, 0:3] = jpl_to_rot(q_new) @ R_kk_1.transpose(-1, -2)
+    u = (R_kk_1 @ g)[..., 0]
+    s = u / torch.sum(u * u, dim=-1, keepdim=True)
+    A1 = Phi[:, 6:9, 0:3]
+    w1 = (skew(imu.v_null - v_new) @ g)[..., 0]
+    Phi[:, 6:9, 0:3] = A1 - ((A1 @ u[..., None])[..., 0] - w1)[..., :, None] * s[:, None, :]
+    A2 = Phi[:, 12:15, 0:3]
+    w2 = (skew(dt[:, None] * imu.v_null + imu.p_null - p_new) @ g)[..., 0]
+    Phi[:, 12:15, 0:3] = A2 - ((A2 @ u[..., None])[..., 0] - w2)[..., :, None] * s[:, None, :]
+
+    Q = (Phi @ G @ Q_imu @ G.transpose(-1, -2) @ Phi.transpose(-1, -2)) * dt[:, None, None]
+    keep = stepped[:, None, None]
+    Phi = torch.where(keep, Phi, torch.eye(21, dtype=dtype, device=dev))
+    Q = torch.where(keep, Q, 0.0)
+    k = stepped[:, None]
+    new_imu = imu._replace(
+        q=q_new, v=v_new, p=p_new,
+        q_null=torch.where(k, q_new, imu.q_null),
+        v_null=torch.where(k, v_new, imu.v_null),
+        p_null=torch.where(k, p_new, imu.p_null),
+        time=torch.where(stepped, t, imu.time),
+    )
+    return new_imu, Phi, Q
+
+
+def process_model_step(state: FilterState, t, m_gyro, m_acc, Q_imu: torch.Tensor, valid) -> FilterState:
+    """One IMU sample's propagation of one sequence (reference
+    processModel): the full covariance multiplied by blockdiag(Phi, I).  A
+    masked or non-increasing sample leaves the state unchanged."""
+    s = add_lane_axis(state)
+    dtype, dev = state.P.dtype, state.P.device
+
+    def lane(x, dt=dtype):
+        return torch.as_tensor(x, dtype=dt, device=dev)[None]
+
+    imu, Phi, Q = _imu_step(
+        s.imu, lane(t), lane(m_gyro), lane(m_acc), Q_imu, s.gravity, lane(valid, torch.bool)
+    )
+    D = state.P.shape[-1]
+    Phi_full = torch.eye(D, dtype=dtype, device=dev).expand(1, D, D).clone()
+    Phi_full[:, :21, :21] = Phi
+    P = Phi_full @ s.P @ Phi_full.transpose(-1, -2)
+    P[:, :21, :21] += Q
+    P = 0.5 * (P + P.transpose(-1, -2))
+    return drop_lane_axis(s._replace(imu=imu, P=P))
+
+
+def propagate_sequential(state: FilterState, batch: ImuBatch, Q_imu: torch.Tensor) -> FilterState:
+    """One sequence's frame of IMU propagation, sample by sample: the
+    one-lane view of ``batched_propagate_sequential``."""
+    return drop_lane_axis(batched_propagate_sequential(add_lane_axis(state), add_lane_axis(batch), Q_imu))
+
+
+def batched_propagate_sequential(state: FilterState, batch: ImuBatch, Q_imu: torch.Tensor) -> FilterState:
+    """Batch IMU propagation of each lane as a loop over the L samples
+    (reference batchImuProcessing): the per-sample (Phi, Q) pairs compose
+    (Phi_acc <- Phi_i Phi_acc, Q_acc <- Phi_i Q_acc Phi_i^T + Q_i) and hit
+    the full covariance once.  The reference ``batched_propagate`` is held
+    against."""
+    dtype, dev = state.P.dtype, state.P.device
+    B, L = batch.time.shape
+    t, gyro, acc = (x.to(dtype) for x in (batch.time, batch.gyro, batch.acc))
+    dt = None if batch.dt is None else batch.dt.to(dtype)
+    imu = state.imu
+    Phi_acc = torch.eye(21, dtype=dtype, device=dev).repeat(B, 1, 1)
+    Q_acc = torch.zeros((B, 21, 21), dtype=dtype, device=dev)
+    for i in range(L):
+        imu, Phi, Q = _imu_step(
+            imu, t[:, i], gyro[:, i], acc[:, i], Q_imu, state.gravity, batch.valid[:, i],
+            None if dt is None else dt[:, i],
+        )
+        Phi_acc = Phi @ Phi_acc
+        Q_acc = Phi @ Q_acc @ Phi.transpose(-1, -2) + Q
     return _apply_propagation(state, imu, Phi_acc, Q_acc)

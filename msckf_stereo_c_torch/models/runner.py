@@ -1,14 +1,19 @@
-"""Host-side helpers of the sequence drivers (port of
-``msckf_stereo_c_tpu/models/runner.py``): per-frame IMU packing and the
-gravity/bias initialization."""
+"""Host-side sequence driving (port of ``msckf_stereo_c_tpu/models/
+runner.py``): per-frame IMU packing, the gravity/bias initialization, and
+``run_sequence``, the filter-only driver over recorded feature frames."""
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..utils.lanes import add_lane_axis, drop_lane_axis
+from ..config import FilterConfig, StereoCalib, resolve_device
+from ..utils.lanes import add_lane_axis, drop_lane_axis, map_tree
+from .msckf import FrameFeatures, MsckfParams, batched_filter_step, make_params
 from .propagation import ImuBatch, initialize_gravity_bias
-from .state import FilterState
+from .state import FilterState, init_filter_state
 
 
 def pack_imu_batches(
@@ -106,3 +111,92 @@ def batched_apply_gravity_init(state: FilterState, gyro_windows, acc_windows) ->
     q0, bg, gravity = (x.expand(B, -1).clone() for x in initialize_gravity_bias(gyro, acc))
     imu = state.imu._replace(q=q0, bg=bg, q_null=q0)
     return state._replace(imu=imu, gravity=gravity)
+
+
+@dataclasses.dataclass
+class SequenceResult:
+    times: np.ndarray  # (T,)
+    positions: np.ndarray  # (T, 3)
+    quats_xyzw: np.ndarray  # (T, 4) Hamilton body->world
+    num_cams: np.ndarray
+    num_tracks: np.ndarray
+    final_state: FilterState
+
+
+def _run_chunk(state: FilterState, frames: FrameFeatures, imu: ImuBatch, params: MsckfParams, cfg, method):
+    """``batched_filter_step`` over the T frames of a chunk, one Python step
+    per frame: ``frames`` and ``imu`` (B, T, ...).  Returns the state after
+    the last frame and the PoseOutput tree (B, T, ...)."""
+    outs = []
+    for k in range(frames.time.shape[1]):
+        state, out = batched_filter_step(
+            state, map_tree(lambda x: x[:, k], frames), map_tree(lambda x: x[:, k], imu), params, cfg, method
+        )
+        outs.append(out)
+    return state, type(outs[0])(*(torch.stack(list(x), dim=1) for x in zip(*outs)))
+
+
+def run_sequence(
+    cfg: FilterConfig,
+    calib: StereoCalib,
+    frame_t: np.ndarray,
+    fid: np.ndarray,  # (T, F)
+    uv: np.ndarray,  # (T, F, 4)
+    valid: np.ndarray,  # (T, F)
+    imu_t: np.ndarray,
+    imu_gyro: np.ndarray,
+    imu_acc: np.ndarray,
+    dtype=torch.float64,
+    method: str = "qr",
+    chunk: Optional[int] = None,
+    state: Optional[FilterState] = None,
+    quality: Optional[np.ndarray] = None,  # (T, F) tracking-SNR proxy
+    device=None,
+) -> SequenceResult:
+    """Run the back-end over one sequence of frontend feature frames on
+    ``device`` (the CUDA card when None; raises without CUDA unless a
+    device is named), one Python step per frame; the per-frame outputs
+    come back to the host once every ``chunk`` frames."""
+    device = resolve_device(device)
+    params = make_params(cfg, calib, dtype, device)
+    if state is None:
+        state = init_filter_state(cfg, calib, dtype, device)
+        # Gravity/bias from the first imu_init_samples (the reference waits
+        # for 200 samples before processing frames).
+        n0 = min(cfg.imu_init_samples, imu_t.shape[0])
+        state = apply_gravity_init(state, imu_gyro[:n0], imu_acc[:n0])
+    batches = pack_imu_batches(imu_t, imu_gyro, imu_acc, frame_t, cfg.max_imu_per_frame, device=device)
+
+    def dev(x, dt):
+        return torch.as_tensor(np.asarray(x), dtype=dt).to(device)[None]
+
+    frames = FrameFeatures(
+        time=dev(np.asarray(frame_t, np.float64), dtype),
+        fid=dev(fid, torch.int32),
+        uv=dev(uv, dtype),
+        valid=dev(valid, torch.bool),
+        quality=None if quality is None else dev(quality, dtype),
+    )
+    T = frame_t.shape[0]
+    chunk = chunk or T
+    state = add_lane_axis(state)
+    outs = []
+    for s0 in range(0, T, chunk):
+        sl = slice(s0, min(s0 + chunk, T))
+        state, out = _run_chunk(
+            state, map_tree(lambda x: x[:, sl], frames), map_tree(lambda x: x[None, sl], batches),
+            params, cfg, method,
+        )
+        outs.append(drop_lane_axis(out))
+
+    def cat(field):
+        return torch.cat([getattr(o, field) for o in outs]).cpu().numpy()
+
+    return SequenceResult(
+        times=cat("time"),
+        positions=cat("p"),
+        quats_xyzw=cat("q_xyzw"),
+        num_cams=cat("num_cams"),
+        num_tracks=cat("num_tracks"),
+        final_state=drop_lane_axis(state),
+    )

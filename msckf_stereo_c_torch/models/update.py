@@ -1,13 +1,23 @@
-"""Multi-state-constraint measurement update, Schur path with Newton-Schulz
-solves (port of ``msckf_stereo_c_tpu/models/update.py``, the functions the
-bench configuration runs).
+"""Multi-state-constraint measurement update (port of
+``msckf_stereo_c_tpu/models/update.py``).
 
 Per-(track, camera) 4x6 / 4x3 Jacobian blocks with the observability
-constraint are computed for the whole (K tracks x M slots) grid at once;
-gating and the EKF update marginalize the feature positions through an
-orthonormal basis of each track's H_f, with no QR and no factorization.
-Every tensor carries a leading sequence lane axis B; the (B, D, D) solves
-run batched over the lanes.
+constraint are computed for the whole (K tracks x M slots) grid at once.
+Two algebras consume them:
+
+* ``method='schur'``: gating and the EKF update marginalize the feature
+  positions through an orthonormal basis of each track's H_f, with no QR;
+  its solves are Newton-Schulz matmuls (``ns_iters > 0``) or exact
+  Cholesky factorizations (``ns_iters == 0``);
+* ``method='qr'`` / ``'cholesky'`` (reference featureJacobian and
+  measurementUpdate): the stacked rows are projected onto the left
+  nullspace of H_f (``track_jacobians``), gated, and compressed into a
+  (D, D) square-root measurement by a dense QR or a normal-equation
+  Cholesky (``compress_measurements``).
+
+Every tensor carries a leading sequence lane axis B; the solves run batched
+over the lanes.  A factorization that fails gives NaN, as in JAX
+(``ops/linalg.py``).
 """
 from __future__ import annotations
 
@@ -15,10 +25,16 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.linalg import inv3x3, ns_posdef_inverse
+from ..ops.linalg import cho_solve, cholesky_nan, inv3x3, ns_posdef_inverse, solve_lower, solve_nan
 from ..utils.lie import skew
 from ..utils.quaternion import jpl_to_rot, quat_multiply, small_angle_quaternion
 from .state import CamStates, FilterState
+
+
+class TrackJacobians(NamedTuple):
+    H_o: torch.Tensor  # (B, K, 4M, D) nullspace-projected stacked Jacobians
+    r_o: torch.Tensor  # (B, K, 4M) projected residuals
+    rows_valid: torch.Tensor  # (B, K, 4M) rows that carry information
 
 
 class TrackBlocks(NamedTuple):
@@ -96,6 +112,120 @@ def track_blocks(
     )
 
 
+def _cam_selector(M: int, D: int, dtype, device) -> torch.Tensor:
+    """Constant (M, 6, D) one-hot placing each camera's 6-dof block, built
+    by a comparison where it is used: a copy or a scalar write from the
+    host would synchronise."""
+    col = 21 + 6 * torch.arange(M, device=device)[:, None] + torch.arange(6, device=device)
+    return (torch.arange(D, device=device) == col[..., None]).to(dtype)
+
+
+def _left_nullspace_apply(F: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Q^T X for the complete QR F = Q R of each (n, k) matrix of ``F``
+    (..., n, k), X (..., n, c): rows k: of the result are A^T X with A =
+    Q[:, k:] the left-nullspace basis of F.
+
+    Q is built from LAPACK's Householder reflectors (``dgeqr2``/``dlarfg``):
+    H_j = I - tau_j v_j v_j^T with v_j[j] = 1, beta = -sign(alpha) |x|, and
+    tau_j = 0 where the column below the diagonal is zero.  So the basis is
+    the one ``jnp.linalg.qr(mode='complete')`` returns on the CPU, and no
+    library QR runs: three reflections of batched tensor ops."""
+    n, k = F.shape[-2:]
+    rows = torch.arange(n, device=F.device)
+    for j in range(k):
+        below = rows > j
+        alpha = F[..., j, j]
+        x = torch.where(below, F[..., :, j], 0.0)
+        xnorm = torch.linalg.norm(x, dim=-1)
+        flat = xnorm == 0
+        beta = -torch.copysign(torch.hypot(alpha, xnorm), alpha)
+        tau = torch.where(flat, 0.0, (beta - alpha) / torch.where(flat, 1.0, beta))
+        v = x / torch.where(flat, 1.0, alpha - beta)[..., None] + (rows == j).to(F.dtype)
+        tv = (tau[..., None] * v)[..., :, None]  # (..., n, 1)
+        F = F - tv * (v[..., None, :] @ F)
+        X = X - tv * (v[..., None, :] @ X)
+    return X
+
+
+def track_jacobians(
+    pos_w: torch.Tensor,  # (B, K, 3)
+    obs: torch.Tensor,  # (B, K, M, 4)
+    obs_mask: torch.Tensor,  # (B, K, M)
+    cams: CamStates,
+    gravity: torch.Tensor,
+    R_c0_c1: torch.Tensor,
+    t_c0_c1: torch.Tensor,
+) -> TrackJacobians:
+    """Stacked, nullspace-projected Jacobians of every track of every lane
+    (reference featureJacobian).  The last 3 of the 4M rows are zero
+    padding, as in JAX."""
+    B, K, M, _ = obs.shape
+    dtype = pos_w.dtype
+    D = 21 + 6 * M
+    blocks = track_blocks(pos_w, obs, obs_mask, cams, gravity, R_c0_c1, t_c0_c1)
+    E = _cam_selector(M, D, dtype, pos_w.device)
+    H_stack = torch.einsum("zkmab,mbd->zkmad", blocks.H_x, E).reshape(B, K, 4 * M, D)
+    X = torch.cat([H_stack, blocks.r.reshape(B, K, 4 * M, 1)], dim=-1)
+    proj = _left_nullspace_apply(blocks.H_f.reshape(B, K, 4 * M, 3), X)[..., 3:, :]
+    proj = torch.cat([proj, proj.new_zeros(B, K, 3, D + 1)], dim=2)
+    n_rows = 4 * torch.sum(obs_mask, dim=-1) - 3  # (B, K)
+    rows_valid = torch.arange(4 * M, device=obs.device) < n_rows[..., None]
+    return TrackJacobians(H_o=proj[..., :D], r_o=proj[..., D], rows_valid=rows_valid)
+
+
+def gating_scores(jacs: TrackJacobians, P: torch.Tensor, sigma2) -> torch.Tensor:
+    """Mahalanobis gamma (B, K) per track, r^T (H P H^T + sigma2 I)^-1 r
+    over the projected rows (reference gatingTest); NaN where the system
+    does not factor, which fails every chi-square test."""
+    HP = torch.einsum("zkrd,zde->zkre", jacs.H_o, P)
+    S = HP @ jacs.H_o.transpose(-1, -2)
+    R = jacs.H_o.shape[-2]
+    S = S + sigma2 * torch.eye(R, dtype=P.dtype, device=P.device)
+    sol = cho_solve(cholesky_nan(S), jacs.r_o[..., None])[..., 0]
+    return torch.sum(jacs.r_o * sol, dim=-1)
+
+
+def _info_jitter(dtype) -> float:
+    """Relative Cholesky jitter of an accumulated information matrix: it
+    must dominate the f32 rounding's negative eigenvalues (order
+    eps_machine * |N|) or the factorization fails."""
+    return 1e-10 if dtype == torch.float64 else 1e-5
+
+
+def _sqrt_information(N: torch.Tensor, y: torch.Tensor):
+    """(R, r) with R^T R = N + eps I and R^T r = y for each lane's
+    information (N (B, n, n), y (B, n)): the jittered Cholesky
+    square root."""
+    n = N.shape[-1]
+    trace = torch.diagonal(N, dim1=-2, dim2=-1).sum(-1)
+    eps = _info_jitter(N.dtype) * (trace / n + 1.0)
+    L = cholesky_nan(N + eps[..., None, None] * torch.eye(n, dtype=N.dtype, device=N.device))
+    return L.transpose(-1, -2), solve_lower(L, y)
+
+
+def compress_measurements(jacs: TrackJacobians, use_mask: torch.Tensor, method: str = "qr"):
+    """Compress each lane's selected tracks' rows into a (D, D) square-root
+    measurement (replaces the SPQR thin QR): (R_t (B, D, D), r_t (B, D))
+    with R_t^T R_t = H^T H and R_t^T r_t = H^T r.
+
+    ``'qr'`` takes both from one reduced QR of [H | r] (its first D
+    reflectors are H's, so the last column's top D entries are Q1^T r);
+    ``'cholesky'`` from the jittered normal equations.  R_t is unique up
+    to the signs of its rows, which the EKF update does not see."""
+    dtype = jacs.H_o.dtype
+    B, K, R, D = jacs.H_o.shape
+    m = use_mask.to(dtype)
+    H = (jacs.H_o * m[..., None, None]).reshape(B, K * R, D)
+    r = (jacs.r_o * m[..., None]).reshape(B, K * R)
+    if method == "qr":
+        Ra = torch.linalg.qr(torch.cat([H, r[..., None]], dim=-1), mode="r").R
+        return Ra[..., :D, :D], Ra[..., :D, D]
+    if method == "cholesky":
+        Ht = H.transpose(-1, -2)
+        return _sqrt_information(Ht @ H, (Ht @ r[..., None])[..., 0])
+    raise ValueError(f"unknown compression method {method!r}")
+
+
 def _feature_basis(blocks: TrackBlocks) -> torch.Tensor:
     """(B, K, 4M, 3) orthonormal basis of col(H_f) per track by modified
     Gram-Schmidt over the three columns."""
@@ -155,10 +285,17 @@ def cam_cov_blocks(P: torch.Tensor, cam_idx: torch.Tensor) -> torch.Tensor:
 
 def _constrained_gamma(Mk, Q1, r, sigma2, ns_iters: int):
     """gamma = r^T w with M w + Q1 lam = r, Q1^T w = 0, by block
-    elimination with the Newton-Schulz inverse of M."""
-    X = ns_posdef_inverse(Mk, sigma2, ns_iters)
-    Minv_r = torch.einsum("...rs,...s->...r", X, r)
-    Minv_Q = X @ Q1
+    elimination: two solves with M, by the Newton-Schulz inverse
+    (``ns_iters > 0``) or an exact Cholesky (0; NaN where M does not
+    factor)."""
+    if ns_iters:
+        X = ns_posdef_inverse(Mk, sigma2, ns_iters)
+        Minv_r = torch.einsum("...rs,...s->...r", X, r)
+        Minv_Q = X @ Q1
+    else:
+        cho = cholesky_nan(Mk)
+        Minv_r = cho_solve(cho, r[..., None])[..., 0]
+        Minv_Q = cho_solve(cho, Q1)
     QMQ = torch.einsum("...ra,...rb->...ab", Q1, Minv_Q)
     QMr = torch.einsum("...ra,...r->...a", Q1, Minv_r)
     eye3 = torch.eye(3, dtype=Mk.dtype, device=Mk.device)
@@ -177,13 +314,13 @@ def _gamma(blocks: TrackBlocks, Pc: torch.Tensor, sigma2, ns_iters: int) -> torc
     return _constrained_gamma(Mk, Q1, blocks.r.reshape(B, K, R4), sigma2, ns_iters)
 
 
-def schur_gating(blocks: TrackBlocks, P: torch.Tensor, sigma2, ns_iters: int) -> torch.Tensor:
+def schur_gating(blocks: TrackBlocks, P: torch.Tensor, sigma2, ns_iters: int = 0) -> torch.Tensor:
     """Mahalanobis gamma (B, K) per track of the nullspace-projected
     system."""
     return _gamma(blocks, _cam_blocks(P), sigma2, ns_iters)
 
 
-def schur_gating_compact(blocks: TrackBlocks, Pc: torch.Tensor, sigma2, ns_iters: int):
+def schur_gating_compact(blocks: TrackBlocks, Pc: torch.Tensor, sigma2, ns_iters: int = 0):
     """``schur_gating`` on camera-compacted blocks with their (B, Mc, Mc, 6,
     6) covariance blocks ``Pc``."""
     return _gamma(blocks, Pc, sigma2, ns_iters)
@@ -205,14 +342,47 @@ def _ns_update(state: FilterState, Ncc, ycc, P_cols, P_cc, sigma2, ns_iters: int
     return state._replace(P=P_new)
 
 
+def _sqrt_update(state: FilterState, R, r, P_cols, P_cc, sigma2) -> FilterState:
+    """EKF update of each lane from a square-root measurement (R (B, n, n),
+    r (B, n)) on the state columns ``P_cols`` = P[:, c] (B, D, n), P_cc =
+    P[c, c]: K = P[:, c] R^T S^-1 with S = R P_cc R^T + s2 I, P' = P -
+    K R P[c, :] (reference measurementUpdate).  A zero R is a no-op."""
+    n = R.shape[-1]
+    S = R @ P_cc @ R.transpose(-1, -2) + sigma2 * torch.eye(n, dtype=R.dtype, device=R.device)
+    RPt = R @ P_cols.transpose(-1, -2)  # (B, n, D)
+    K = solve_nan(S, RPt).transpose(-1, -2)  # (B, D, n)
+    delta = (K @ r[..., None])[..., 0]
+    P_new = state.P - K @ RPt
+    P_new = 0.5 * (P_new + P_new.transpose(-1, -2))
+    state = apply_correction(state, delta)
+    return state._replace(P=P_new)
+
+
+def schur_information(blocks: TrackBlocks, use_mask: torch.Tensor, D: int):
+    """Full-width scatter (N (B, D, D), y (B, D)) of
+    ``schur_information_cam``."""
+    Ncc, ycc = schur_information_cam(blocks, use_mask)
+    B = Ncc.shape[0]
+    N = Ncc.new_zeros(B, D, D)
+    N[:, 21:, 21:] = Ncc
+    y = ycc.new_zeros(B, D)
+    y[:, 21:] = ycc
+    return N, y
+
+
 def measurement_update_schur(
-    state: FilterState, blocks: TrackBlocks, use_mask: torch.Tensor, sigma2, ns_iters: int
+    state: FilterState, blocks: TrackBlocks, use_mask: torch.Tensor, sigma2, ns_iters: int = 0
 ) -> FilterState:
     """EKF update from the accumulated Schur information over all camera
-    slots."""
-    Ncc, ycc = schur_information_cam(blocks, use_mask)
+    slots: the information form with one Newton-Schulz inverse
+    (``ns_iters > 0``), or the exact square-root update of the full-width
+    information (0), equivalent to ``measurement_update(method='cholesky')``."""
     P = state.P
-    return _ns_update(state, Ncc, ycc, P[:, :, 21:], P[:, 21:, 21:], sigma2, ns_iters)
+    if ns_iters:
+        Ncc, ycc = schur_information_cam(blocks, use_mask)
+        return _ns_update(state, Ncc, ycc, P[:, :, 21:], P[:, 21:, 21:], sigma2, ns_iters)
+    R_t, r_t = _sqrt_information(*schur_information(blocks, use_mask, P.shape[-1]))
+    return _sqrt_update(state, R_t, r_t, P, P, sigma2)
 
 
 def measurement_update_schur_compact(
@@ -221,17 +391,31 @@ def measurement_update_schur_compact(
     use_mask: torch.Tensor,
     sigma2,
     cam_idx: torch.Tensor,
-    ns_iters: int,
+    ns_iters: int = 0,
 ) -> FilterState:
     """Camera-compacted Schur update: the information lives in the 6*Mc
-    state columns of each lane's ``cam_idx`` (B, Mc)."""
+    state columns of each lane's ``cam_idx`` (B, Mc), so the update has
+    rank <= 6*Mc (a Newton-Schulz inverse, or an exact (6Mc, 6Mc)
+    Cholesky and solve when ``ns_iters == 0``)."""
     B, Mc = cam_idx.shape
     D = state.P.shape[-1]
     Ncc, ycc = _projected_information(blocks, use_mask)
     cols = (21 + 6 * cam_idx[..., None] + torch.arange(6, device=cam_idx.device)).reshape(B, 6 * Mc)
     P_cols = torch.gather(state.P, 2, cols[:, None, :].expand(B, D, 6 * Mc))
     P_cc = torch.gather(P_cols, 1, cols[:, :, None].expand(B, 6 * Mc, 6 * Mc))
-    return _ns_update(state, Ncc, ycc, P_cols, P_cc, sigma2, ns_iters)
+    if ns_iters:
+        return _ns_update(state, Ncc, ycc, P_cols, P_cc, sigma2, ns_iters)
+    R_c, r_c = _sqrt_information(Ncc, ycc)
+    return _sqrt_update(state, R_c, r_c, P_cols, P_cc, sigma2)
+
+
+def measurement_update(
+    state: FilterState, jacs: TrackJacobians, use_mask: torch.Tensor, sigma2, method: str = "qr"
+) -> FilterState:
+    """Compressed EKF update of each lane (reference measurementUpdate).  A
+    lane with no selected track is left unchanged by ``'qr'`` (R_t = 0)."""
+    R_t, r_t = compress_measurements(jacs, use_mask, method=method)
+    return _sqrt_update(state, R_t, r_t, state.P, state.P, sigma2)
 
 
 def apply_correction(state: FilterState, delta: torch.Tensor) -> FilterState:

@@ -7,8 +7,9 @@ axis, and the images come per lane as (B, H, W) or shared by every lane as
 (H, W).  ``vio_step`` is its one-lane view and ``run_vio_sequence`` drives
 one sequence frame by frame in a Python loop; each chunk of frames is
 copied to the device once, and the per-frame outputs come back to the host
-once at the end.  ``run_vio_sequence`` and ``init_vio_state`` run on the
-CUDA card unless the caller names another device.
+once at the end.  ``vio_step_internals`` is the differential-debug view of
+one frame.  ``run_vio_sequence`` and ``init_vio_state`` run on the CUDA
+card unless the caller names another device.
 """
 from __future__ import annotations
 
@@ -125,7 +126,7 @@ def batched_vio_step(
     mparams: MsckfParams,
     fcfg: FrontendConfig,
     mcfg: FilterConfig,
-    method: str = "schur",
+    method: str = "qr",
 ):
     """One stereo frame of B sequences end to end: ``state`` with a leading
     lane axis, images (B, H, W) per lane or (H, W) shared, ``time`` (B,),
@@ -149,7 +150,7 @@ def vio_step(
     mparams: MsckfParams,
     fcfg: FrontendConfig,
     mcfg: FilterConfig,
-    method: str = "schur",
+    method: str = "qr",
 ):
     """One stereo frame of one sequence end to end: the one-lane view of
     ``batched_vio_step`` (images (H, W)).  Returns (state, (PoseOutput,
@@ -159,6 +160,34 @@ def vio_step(
         fparams, mparams, fcfg, mcfg, method,
     )
     return drop_lane_axis(state), drop_lane_axis(outs)
+
+
+def vio_step_internals(
+    state: VioState,
+    img0: torch.Tensor,
+    img1: torch.Tensor,
+    time: torch.Tensor,
+    imu: ImuBatch,
+    fparams: FrontendParams,
+    mparams: MsckfParams,
+    fcfg: FrontendConfig,
+    mcfg: FilterConfig,
+    method: str = "qr",
+) -> dict:
+    """Differential-debug view of one sequence's frame: the frontend runs
+    as ``vio_step`` runs it, then ``msckf.filter_internals`` returns the
+    update-phase tensors the filter would consume, without advancing any
+    state.  Adds the frontend's published ids, observations and validity."""
+    _, out, frame, _ = _run_frontend(
+        add_lane_axis(state), img0, img1, time.reshape(1), add_lane_axis(imu), fparams, fcfg
+    )
+    internals = _msckf.filter_internals(
+        state.filt, drop_lane_axis(frame), imu, mparams, mcfg, method=method
+    )
+    internals["frontend_fid"] = out.fid[0]
+    internals["frontend_uv"] = out.uv[0]
+    internals["frontend_valid"] = out.valid[0]
+    return internals
 
 
 def step_frames(
@@ -171,7 +200,7 @@ def step_frames(
     mparams: MsckfParams,
     fcfg: FrontendConfig,
     mcfg: FilterConfig,
-    method: str = "schur",
+    method: str = "qr",
 ) -> Tuple[VioState, List[PoseOutput], List[FrameOutput]]:
     """``batched_vio_step`` over T frames of B lanes, one Python step per
     frame: images (B, T, H, W) per lane or (T, H, W) shared, ``times``
@@ -214,6 +243,9 @@ class VioResult:
     fid: Optional[np.ndarray] = None  # (T, N) int32
     uv: Optional[np.ndarray] = None  # (T, N, 4)
     valid: Optional[np.ndarray] = None  # (T, N) bool
+    # Filled only when run_vio_sequence(internals_at=N): frame N's
+    # vio_step_internals, as numpy arrays.
+    internals: Optional[dict] = None
 
 
 def run_vio_sequence(
@@ -228,18 +260,22 @@ def run_vio_sequence(
     imu_acc: np.ndarray,
     image_dtype=torch.float32,
     filter_dtype=torch.float64,
-    method: str = "schur",
+    method: str = "qr",
     chunk: Optional[int] = None,
     state: Optional[VioState] = None,
+    internals_at: Optional[int] = None,
     prev_frame_t: Optional[float] = None,
     device=None,
 ) -> VioResult:
     """Host driver over one image sequence (reference per-image loop), a
     batch of one lane.  The images may be host arrays or tensors (a tensor
     already on the device is used in place); ``chunk`` frames' images are
-    resident on the device at a time.  When resuming with ``state``, pass
-    ``prev_frame_t`` = the last processed frame's time so the IMU samples
-    between the calls are packed."""
+    resident on the device at a time.  ``internals_at=N`` also captures
+    frame N's ``vio_step_internals`` in ``result.internals``, from the state
+    before frame N, without changing the run (it starts a chunk there, as
+    in JAX).  When resuming with ``state``, pass ``prev_frame_t`` = the
+    last processed frame's time so the IMU samples between the calls are
+    packed."""
     device = resolve_device(device)
     fcfg = dataclasses.replace(
         fcfg,
@@ -262,16 +298,26 @@ def run_vio_sequence(
     ))
     T = frame_t.shape[0]
     chunk = chunk or T
+    bounds = list(range(0, T, chunk))
+    if internals_at is not None and 0 <= internals_at < T:
+        bounds = sorted(set(bounds) | {internals_at})
     state = add_lane_axis(state)
     poses, fronts = [], []
-    for s0 in range(0, T, chunk):
-        s1 = min(s0 + chunk, T)
+    internals = None
+    for j, s0 in enumerate(bounds):
+        s1 = bounds[j + 1] if j + 1 < len(bounds) else T
         imgs0 = _on_device(images0[s0:s1], image_dtype, device)
         imgs1 = _on_device(images1[s0:s1], image_dtype, device)
         times = torch.as_tensor(np.asarray(frame_t[s0:s1], np.float64), dtype=filter_dtype).to(device)
+        imu = map_tree(lambda x: x[:, s0:s1], batches)
+        if s0 == internals_at:
+            d = vio_step_internals(
+                drop_lane_axis(state), imgs0[0], imgs1[0], times[0], map_tree(lambda x: x[0, 0], imu),
+                fparams, mparams, fcfg, mcfg, method,
+            )
+            internals = {k: v.cpu().numpy() for k, v in d.items()}
         state, p, f = step_frames(
-            state, imgs0, imgs1, times[None], map_tree(lambda x: x[:, s0:s1], batches),
-            fparams, mparams, fcfg, mcfg, method,
+            state, imgs0, imgs1, times[None], imu, fparams, mparams, fcfg, mcfg, method,
         )
         poses += p
         fronts += f
@@ -293,4 +339,5 @@ def run_vio_sequence(
         fid=cat(fronts, "fid"),
         uv=cat(fronts, "uv"),
         valid=cat(fronts, "valid"),
+        internals=internals,
     )

@@ -1,5 +1,11 @@
-"""Closed-form small solves and the Newton-Schulz SPD inverse (port of
-``msckf_stereo_c_tpu/ops/linalg.py``), batched over leading dims."""
+"""Closed-form small solves, the Newton-Schulz SPD inverse (port of
+``msckf_stereo_c_tpu/ops/linalg.py``) and the factorizations of the
+filter's exact paths, batched over leading dims.
+
+The factorizations follow ``jnp.linalg``: a matrix that does not factor
+gives NaN where torch would raise.  They never check an error code, so on
+the card they queue without a host read; a NaN gating score then fails its
+chi-square test, as in the JAX package."""
 from __future__ import annotations
 
 import torch
@@ -70,3 +76,29 @@ def solve2x2(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x0 = (d * b[..., 0] - bb * b[..., 1]) * inv_det
     x1 = (-c * b[..., 0] + a * b[..., 1]) * inv_det
     return torch.stack([x0, x1], dim=-1)
+
+
+def cholesky_nan(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of each matrix of ``A`` (..., n, n); NaN where
+    the matrix is not positive definite (``jnp.linalg.cholesky``)."""
+    L, info = torch.linalg.cholesky_ex(A, check_errors=False)
+    return torch.where((info == 0)[..., None, None], L, float("nan"))
+
+
+def solve_lower(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """L^-1 b for lower-triangular ``L`` (..., n, n) and ``b`` (..., n)."""
+    return torch.linalg.solve_triangular(L, b[..., None], upper=False)[..., 0]
+
+
+def cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A^-1 B from the lower factor ``L`` of A (..., n, n), B (..., n, k)
+    (``jax.scipy.linalg.cho_solve``)."""
+    y = torch.linalg.solve_triangular(L, B, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+
+
+def solve_nan(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A^-1 B by LU (``jnp.linalg.solve``) for A (..., n, n), B (..., n, k);
+    NaN where A is singular."""
+    X, info = torch.linalg.solve_ex(A, B, check_errors=False)
+    return torch.where((info == 0)[..., None, None], X, float("nan"))

@@ -6,20 +6,32 @@ A long, aggressive 6-dof trajectory with near-stall stretches
 floor and ceiling at +/-3.5 m, ``make_room_landmarks``), the stress
 schedule (texture-poor windows, an occluder sweep, exposure drift, sensor
 noise, motion blur, vignetting; ``make_stress_events``), rendered on the
-run's device in chunks and fed chunk by chunk to ``run_vio_sequence``.
-The gate is ATE RMSE <= 0.13 m.
+run's device in chunks.  The gate is ATE RMSE <= 0.13 m.
+
+``run_stress_lanes`` runs several robustness seeds as lanes of one batched
+run (``parallel/vio_multiseq.py:run_vio_batch``): each lane has its own
+landmark field, IMU noise, photometric draws and images, and the lanes step
+together, each kernel launching once per frame for all of them.
+``run_stress_gate`` is its one-lane view.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..config import EUROC_CALIB, FilterConfig, FrontendConfig, StereoCalib, resolve_device
+from ..convert import to_numpy
 from ..io.tum import evaluate_ate
-from ..models.vio import VioResult, run_vio_sequence
+from ..models.frontend import make_frontend_params
+from ..models.msckf import make_params
+from ..models.propagation import ImuBatch
+from ..models.runner import pack_imu_batches
+from ..models.vio import VioResult
+from ..parallel.vio_multiseq import batched_gravity_init, batched_init_vio_state, run_vio_batch
+from ..utils.lanes import lane
 from .render_torch import StressEvents, TorchRenderer, make_stress_events
 from .trajectory import (
     make_circle_trajectory,
@@ -28,6 +40,12 @@ from .trajectory import (
     make_stress_trajectory,
     synthesize_imu,
 )
+
+
+def protocol_lm_seed(seed: int) -> int:
+    """The multi-seed protocol's landmark seed: seed 0 keeps the historical
+    layout, every other seed re-draws the field."""
+    return 1 if seed == 0 else 1000 + seed
 
 
 @dataclasses.dataclass
@@ -67,77 +85,150 @@ def run_stress_gate(
     events_kwargs: Optional[dict] = None,
     device=None,
 ) -> StressGateResult:
-    """Render and run the stress scene in chunks of ``chunk`` frames on
-    ``device`` (the CUDA card when None; raises without CUDA unless a
-    device is named): each chunk is rendered there and goes straight into
-    ``run_vio_sequence``, resuming from the state the chunk before left."""
+    """Render and run the stress scene of one seed in chunks of ``chunk``
+    frames on ``device`` (the CUDA card when None; raises without CUDA
+    unless a device is named): the one-lane view of ``run_stress_lanes``
+    (landmark seed ``lm_seed``, 1 when None)."""
+    return run_stress_lanes(
+        [seed], duration=duration, frame_stride=frame_stride, r_wall=r_wall, z_cap=z_cap,
+        num_landmarks=num_landmarks, chunk=chunk, fcfg=fcfg, mcfg=mcfg, calib=calib,
+        image_dtype=image_dtype, filter_dtype=filter_dtype, method=method,
+        events=None if events is None else [events], stress=stress, traj_kwargs=traj_kwargs,
+        generator=generator, lm_seeds=[1 if lm_seed is None else lm_seed],
+        imu_gyro_noise=imu_gyro_noise, imu_acc_noise=imu_acc_noise, events_kwargs=events_kwargs,
+        device=device,
+    )[0]
+
+
+def run_stress_lanes(
+    seeds: Sequence[int],
+    duration: float = 130.0,
+    frame_stride: int = 10,
+    r_wall: float = 7.0,
+    z_cap: float = 3.5,
+    num_landmarks: int = 900,
+    chunk: int = 64,
+    fcfg: Optional[FrontendConfig] = None,
+    mcfg: Optional[FilterConfig] = None,
+    calib: StereoCalib = EUROC_CALIB,
+    image_dtype=torch.float32,
+    filter_dtype=torch.float32,
+    method: str = "schur",
+    events: Optional[Sequence[StressEvents]] = None,
+    stress: bool = True,
+    traj_kwargs: Optional[dict] = None,
+    generator: str = "stress",
+    lm_seeds: Optional[Sequence[int]] = None,
+    imu_gyro_noise: float = 5e-4,
+    imu_acc_noise: float = 5e-3,
+    events_kwargs: Optional[dict] = None,
+    device=None,
+) -> list:
+    """The stress scene of each robustness seed, the seeds as the lanes of
+    one batched run on ``device`` (the CUDA card when None; raises without
+    CUDA unless a device is named).  Seed ``s`` draws the IMU noise and
+    the photometric channels with ``s`` and its landmark field with
+    ``lm_seeds`` (the protocol's ``protocol_lm_seed`` when None); one
+    trajectory and frame clock serve every lane.  Each chunk of ``chunk``
+    frames is rendered per lane on the device and stepped by
+    ``run_vio_batch``, resuming from the states the chunk before left.
+    Returns one ``StressGateResult`` per seed."""
     device = resolve_device(device)
+    seeds = list(seeds)
+    B = len(seeds)
+    lm_seeds = [protocol_lm_seed(s) for s in seeds] if lm_seeds is None else list(lm_seeds)
     make_traj = {
         "stress": make_stress_trajectory,
         "circle": make_circle_trajectory,
         "fastmotion": make_fastmotion_trajectory,
     }[generator]
     traj = make_traj(duration=duration, **(traj_kwargs or {}))
-    landmarks = make_room_landmarks(
-        num=num_landmarks, radius=r_wall, z_cap=z_cap, seed=1 if lm_seed is None else lm_seed
-    )
-    imu = synthesize_imu(traj, gyro_noise=imu_gyro_noise, acc_noise=imu_acc_noise, seed=seed)
     frame_idx = np.arange(0, traj.t.shape[0], frame_stride)
     frame_t = traj.t[frame_idx]
     T = len(frame_idx)
-
+    imus = [synthesize_imu(traj, gyro_noise=imu_gyro_noise, acc_noise=imu_acc_noise, seed=s) for s in seeds]
     if events is not None:
-        ev = events
+        evs = list(events)
     elif stress:
         # The photometric channels draw with the robustness seed too.
-        ev = make_stress_events(traj, frame_idx, noise_seed=seed, **(events_kwargs or {}))
+        evs = [make_stress_events(traj, frame_idx, noise_seed=s, **(events_kwargs or {})) for s in seeds]
     else:
-        ev = StressEvents.nominal(T)
-    renderer = TorchRenderer(landmarks, calib, r_wall=r_wall, z_cap=z_cap, device=device)
+        evs = [StressEvents.nominal(T)] * B
+    renderers = [
+        TorchRenderer(
+            make_room_landmarks(num=num_landmarks, radius=r_wall, z_cap=z_cap, seed=ls),
+            calib, r_wall=r_wall, z_cap=z_cap, device=device,
+        )
+        for ls in lm_seeds
+    ]
 
-    fcfg = fcfg or FrontendConfig()
+    fcfg = dataclasses.replace(
+        fcfg or FrontendConfig(),
+        distortion_model0=calib.cam0.distortion_model,
+        distortion_model1=calib.cam1.distortion_model,
+    )
     mcfg = mcfg or FilterConfig(ns_iters=10 if method == "schur" else 0)
+    H, W = calib.cam0.resolution[1], calib.cam0.resolution[0]
+    fparams = make_frontend_params(calib, image_dtype, device)
+    mparams = make_params(mcfg, calib, filter_dtype, device)
+    states = batched_init_vio_state(fcfg, mcfg, calib, (H, W), B, image_dtype, filter_dtype, device)
+    n0 = mcfg.imu_init_samples
+    states = batched_gravity_init(
+        states, np.stack([m.gyro[:n0] for m in imus]), np.stack([m.acc[:n0] for m in imus])
+    )
 
-    state = None
-    results = []
+    poses, fronts = [], []
     for s0 in range(0, T, chunk):
         s1 = min(s0 + chunk, T)
-        img0, img1 = renderer.render_sequence(traj, frame_idx[s0:s1], ev.slice(s0, s1), chunk=chunk)
-        res = run_vio_sequence(
-            fcfg, mcfg, calib, frame_t[s0:s1], img0, img1, imu.t, imu.gyro, imu.acc,
-            image_dtype=image_dtype, filter_dtype=filter_dtype, method=method,
-            state=state, prev_frame_t=float(frame_t[s0 - 1]) if s0 > 0 else None,
-            device=device,
+        prev = float(frame_t[s0 - 1]) if s0 > 0 else None
+        rendered = [r.render_sequence(traj, frame_idx[s0:s1], ev.slice(s0, s1), chunk=chunk)
+                    for r, ev in zip(renderers, evs)]
+        # One lane reads its frames as one shared stack, as a one-sequence
+        # run does; several lanes read a (B, T, H, W) stack.
+        img0 = torch.stack([x[0] for x in rendered]) if B > 1 else rendered[0][0]
+        img1 = torch.stack([x[1] for x in rendered]) if B > 1 else rendered[0][1]
+        del rendered
+        # Each lane packs its own IMU stream.
+        packed = [pack_imu_batches(m.t, m.gyro, m.acc, frame_t[s0:s1], mcfg.max_imu_per_frame,
+                                   prev_frame_t=prev) for m in imus]
+        imu = ImuBatch(*(torch.stack(x) for x in zip(*packed)))
+        states, pose, front, _ = run_vio_batch(
+            states, img0, img1, np.repeat(frame_t[None, s0:s1], B, axis=0), imu,
+            fparams, mparams, fcfg, mcfg, method=method, device=device,
         )
         del img0, img1
-        state = res.final_state
-        results.append(res)
+        poses.append(to_numpy(pose))
+        fronts.append(to_numpy(front))
 
-    def cat(field):
-        return np.concatenate([getattr(r, field) for r in results], axis=0)
+    def cat(parts, field, b):
+        return np.concatenate([getattr(p, field)[b] for p in parts], axis=0)
 
-    full = VioResult(
-        times=cat("times"),
-        positions=cat("positions"),
-        quats_xyzw=cat("quats_xyzw"),
-        pos_cov=cat("pos_cov"),
-        num_tracks=cat("num_tracks"),
-        tracking={k: np.concatenate([r.tracking[k] for r in results]) for k in results[0].tracking},
-        final_state=state,
-        fid=cat("fid"),
-        uv=cat("uv"),
-        valid=cat("valid"),
-    )
-    gt_t, gt_p = frame_t, traj.p[frame_idx]
-    ate = evaluate_ate(full.times, full.positions, gt_t, gt_p)
-    return StressGateResult(
-        ate_rmse=float(ate.rmse),
-        ate_mean=float(ate.mean),
-        ate_max=float(ate.max),
-        duration=float(frame_t[-1] - frame_t[0]),
-        n_frames=T,
-        min_tracks_after_ransac=int(full.tracking["after_ransac"][5:].min()),
-        result=full,
-        gt_t=gt_t,
-        gt_p=gt_p,
-    )
+    gt_p = traj.p[frame_idx]
+    out = []
+    for b in range(B):
+        full = VioResult(
+            times=cat(poses, "time", b),
+            positions=cat(poses, "p", b),
+            quats_xyzw=cat(poses, "q_xyzw", b),
+            pos_cov=cat(poses, "p_cov", b),
+            num_tracks=cat(poses, "num_tracks", b),
+            tracking={k: cat(fronts, k, b) for k in
+                      ("before_tracking", "after_tracking", "after_matching", "after_ransac")},
+            final_state=lane(states, b),
+            fid=cat(fronts, "fid", b),
+            uv=cat(fronts, "uv", b),
+            valid=cat(fronts, "valid", b),
+        )
+        ate = evaluate_ate(full.times, full.positions, frame_t, gt_p)
+        out.append(StressGateResult(
+            ate_rmse=float(ate.rmse),
+            ate_mean=float(ate.mean),
+            ate_max=float(ate.max),
+            duration=float(frame_t[-1] - frame_t[0]),
+            n_frames=T,
+            min_tracks_after_ransac=int(full.tracking["after_ransac"][5:].min()),
+            result=full,
+            gt_t=frame_t,
+            gt_p=gt_p,
+        ))
+    return out

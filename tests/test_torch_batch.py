@@ -135,7 +135,7 @@ def test_batched_step_matches_jax_vmap(lanes):
         first = np.asarray(jstate.prev_time) < 0
         before = np.asarray(jstate.filt.num_cams)
         jstate, (jpose, jout) = lanes["step"](jstate, *lanes["frame"](ks))
-        tstate, (tpose, tout) = tvio.batched_vio_step(tstate, *_port_frame(lanes, ks), tfp, tmp, tfcfg, tmcfg)
+        tstate, (tpose, tout) = tvio.batched_vio_step(tstate, *_port_frame(lanes, ks), tfp, tmp, tfcfg, tmcfg, "schur")
         if k == 0:
             np.testing.assert_array_equal(first, [True, False, False])
         after = np.asarray(jpose.num_cams)
@@ -182,10 +182,10 @@ def test_batched_step_equals_one_lane_runs(lanes):
     for k in range(N_STEP):
         ks = [b + k for b in range(B)]
         i0, i1, t, imu = _port_frame(lanes, ks)
-        tstate, outs = tvio.batched_vio_step(tstate, i0, i1, t, imu, tfp, tmp, tfcfg, tmcfg)
+        tstate, outs = tvio.batched_vio_step(tstate, i0, i1, t, imu, tfp, tmp, tfcfg, tmcfg, "schur")
         for b in range(B):
             singles[b], one = tvio.vio_step(
-                singles[b], i0[b], i1[b], t[b], lane(imu, b), tfp, tmp, tfcfg, tmcfg
+                singles[b], i0[b], i1[b], t[b], lane(imu, b), tfp, tmp, tfcfg, tmcfg, "schur"
             )
             _assert_lane_equal(lane(outs, b), one, f"outputs, frame {k}, lane {b}", 1e-12)
     for b in range(B):
@@ -272,8 +272,8 @@ def test_bench_main_prints_the_headline_line(monkeypatch, capsys):
     assert "batch=2" in err and "ate_rmse_worst_lane=" in err
 
 
-@pytest.mark.parametrize("env", [dict(BENCH_NS_ITERS="0"), dict(BENCH_METHOD="qr"), dict(BENCH_KLT="gather"),
-                                 dict(BENCH_UNROLL="2")])
+@pytest.mark.parametrize("env", [dict(BENCH_FILTER_PRECISION="bfloat16"), dict(BENCH_TEMPORAL_LEVELS="2"),
+                                 dict(BENCH_KLT="gather"), dict(BENCH_UNROLL="2")])
 def test_bench_unsupported_knobs_raise(monkeypatch, env):
     for name, value in env.items():
         monkeypatch.setenv(name, value)

@@ -119,7 +119,7 @@ def test_filter_step_sequence(world):
         jimu = jax.tree.map(lambda x: jnp.asarray(x[k]), w["batches"])
         timu = convert.from_numpy(jax.tree.map(lambda x: np.asarray(x[k]), w["batches"]))
         jstate, jpose = step(jstate, _frame(w, k, "jax"), jimu)
-        tstate, tpose = tmsckf.filter_step(tstate, _frame(w, k, "torch"), timu, tparams, TCFG)
+        tstate, tpose = tmsckf.filter_step(tstate, _frame(w, k, "torch"), timu, tparams, TCFG, "schur")
         np.testing.assert_allclose(tpose.p.numpy(), np.asarray(jpose.p), rtol=0, atol=1e-6)
         np.testing.assert_allclose(tpose.q_xyzw.numpy(), np.asarray(jpose.q_xyzw), rtol=0, atol=1e-8)
         assert int(tpose.num_cams) == int(jpose.num_cams)
@@ -176,7 +176,7 @@ def test_filter_step_noise_adaptive(world):
         timu = convert.from_numpy(jax.tree.map(lambda x: np.asarray(x[k]), w["batches"]))
         jstate, jpose = step(jstate, _frame(w, k, "jax")._replace(quality=jnp.asarray(qual[k])), jimu)
         tstate, tpose = tmsckf.filter_step(
-            tstate, _frame(w, k, "torch")._replace(quality=torch.as_tensor(qual[k])), timu, tparams, tcfg
+            tstate, _frame(w, k, "torch")._replace(quality=torch.as_tensor(qual[k])), timu, tparams, tcfg, "schur"
         )
         np.testing.assert_allclose(tpose.p.numpy(), np.asarray(jpose.p), rtol=0, atol=1e-6)
         np.testing.assert_allclose(tpose.q_xyzw.numpy(), np.asarray(jpose.q_xyzw), rtol=0, atol=1e-8)
@@ -189,6 +189,15 @@ def test_filter_step_noise_adaptive(world):
 
 
 def test_unsupported_filter_options_raise():
-    for kw, method in [({}, "qr"), ({"ns_iters": 0}, "schur")]:
-        with pytest.raises(NotImplementedError):
+    """Every method runs with exact (ns_iters=0) and Newton-Schulz solves;
+    an unknown method or a negative ns_iters is refused, and the bf16
+    precision names, which have no PyTorch counterpart, raise."""
+    for method in ("qr", "cholesky", "schur"):
+        for ns in (0, 10):
+            tmsckf.check_supported(TFilterConfig(**{**KW, "ns_iters": ns}), method)
+    for kw, method in [({}, "svd"), ({"ns_iters": -1}, "schur")]:
+        with pytest.raises(ValueError):
             tmsckf.check_supported(TFilterConfig(**{**KW, **kw}), method)
+    for name in ("bfloat16", "bfloat16_3x"):
+        with pytest.raises(NotImplementedError):
+            tmsckf.check_supported(TFilterConfig(**{**KW, "matmul_precision": name}), "qr")

@@ -64,3 +64,12 @@ def test_batched_entry_modules_are_covered():
     assert new <= set(_port_modules())
     paths = {os.path.relpath(p, ROOT) for p in _sources()}
     assert {"msckf_stereo_c_torch/parallel/vio_multiseq.py", "msckf_stereo_c_torch/bench.py"} <= paths
+
+
+def test_stress_script_modules_are_covered():
+    """The multi-seed stress script and the package's scripts are among the
+    modules imported without JAX and scanned for its names above."""
+    new = {"msckf_stereo_c_torch.scripts", "msckf_stereo_c_torch.scripts.stress_gate"}
+    assert new <= set(_port_modules())
+    paths = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {"msckf_stereo_c_torch/scripts/__init__.py", "msckf_stereo_c_torch/scripts/stress_gate.py"} <= paths

@@ -210,7 +210,7 @@ def test_vio_step_stress_frames_mixed(scene, monkeypatch):
         b = tmsckf.ImuBatch(**{n: torch.as_tensor(v) for n, v in _imu_batch(traj, imu, idx[k[j]], L).items()})
         tstate, (tpose, tout) = tvio.vio_step(
             tstate, torch.as_tensor(img0[j]), torch.as_tensor(img1[j]),
-            torch.as_tensor(traj.t[idx[k[j]]]), b, tfp, tmp, tfcfg, tmcfg,
+            torch.as_tensor(traj.t[idx[k[j]]]), b, tfp, tmp, tfcfg, tmcfg, "schur",
         )
         valid = np.asarray(jout.valid)
         np.testing.assert_array_equal(tout.fid.numpy(), np.asarray(jout.fid))

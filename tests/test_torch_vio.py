@@ -90,7 +90,7 @@ def test_vio_step_three_frames(monkeypatch):
         b = tmsckf.ImuBatch(**{n: torch.as_tensor(v) for n, v in _imu_batch(traj, imu, IDX[k], L).items()})
         tstate, (tpose, tout) = tvio.vio_step(
             tstate, torch.as_tensor(img0[k]), torch.as_tensor(img1[k]),
-            torch.as_tensor(traj.t[IDX[k]]), b, tfp, tmp, tfcfg, tmcfg,
+            torch.as_tensor(traj.t[IDX[k]]), b, tfp, tmp, tfcfg, tmcfg, "schur",
         )
         valid = np.asarray(jout.valid)
         np.testing.assert_array_equal(tout.fid.numpy(), np.asarray(jout.fid))
