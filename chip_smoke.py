@@ -54,7 +54,16 @@ Phases, each of which fails the run (exit code 1) if it fails:
    of lane 0);
 11. entry point: ``python -m msckf_stereo_c_torch.bench`` at B=16 over 20
    frames, its one JSON line parsed;
-12. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
+12. euroc: the bench scene's frames written as a EuRoC ``mav0/`` directory
+   (PNGs whose rows use all five filters) and read back through the
+   package's apps: the decoder exact, ``apps/run_euroc.py`` with the three
+   in-repo YAMLs (launches per frame from the loaded config's pyramid
+   levels, TUM rows at epoch times, ATE, poses equal to
+   ``run_vio_sequence``'s, frames/s, decode time, host syncs), a checkpoint
+   save and resume, ``apps/run_euroc_batch.py`` with B=2 (one lane padded)
+   against one-lane runs, and ``entry.entry()``'s step on the card
+   (``phase_euroc``);
+13. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
    (721 stereo frames rendered on the card with every stress channel on,
    ``klt_norm='gain'``), launch counts zeroed just before and read just
    after (7 ``lk_corr_align_gain``, 4 ``extract_template``, 1
@@ -62,15 +71,16 @@ Phases, each of which fails the run (exit code 1) if it fails:
    and track bars,
    frames/s and render time; then the first STRESS_STAGE_SECONDS again with
    each stage timed and its host syncs counted;
-13. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
+14. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
    ``sim/stress.py:run_stress_lanes`` run over STRESS_LANE_SECONDS of the
    stress scene (``klt_norm='none'``; each lane its own landmarks, IMU
    noise, photometric draws and images), launches 7 / 4 / 1 per batched
    frame, against each seed's one-lane ``run_stress_gate``: ids and
    validity equal on the first 10 frames; with the filter in float64 the
    ATEs within 2e-4 m, in float32 (the stress script's dtype, whose batched
-   products round by batch shape) the ATE gap recorded;
-14. the card's name and power limit, the ``{"kernels": [...]}`` line, then
+   products round by batch shape; over STRESS_LANE_F32_SECONDS) the ATE
+   gap recorded;
+15. the card's name and power limit, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Details go to ``<out>/chip_smoke.json``.  The script imports nothing of JAX
@@ -126,7 +136,8 @@ INTERNAL_KEYS = (
     "frontend_fid", "frontend_uv", "frontend_valid",
 )
 STRESS_LANE_SEEDS = (0, 1)  # robustness seeds of the stress-lane run
-STRESS_LANE_SECONDS = 6.0  # its length (121 stereo frames)
+STRESS_LANE_SECONDS = 6.0  # its length in float64 (121 stereo frames)
+STRESS_LANE_F32_SECONDS = 3.0  # its length in float32 (61 stereo frames)
 # Lanes of the batch sweep: bench.py's B=16 and powers of four around it,
 # up to where the card, not the host, sets the batched frame's time.
 SWEEP_BATCHES = (1, 4, 16, 64, 256, 1024)
@@ -1112,7 +1123,8 @@ def phase_stress_lanes(card):
     for dname in ("float64", "float32"):
         kw = dict(fcfg=FrontendConfig(klt_norm="none"),
                   mcfg=FilterConfig(ns_iters=10, matmul_precision="tensorfloat32"), method="schur",
-                  duration=STRESS_LANE_SECONDS, filter_dtype=getattr(torch, dname))
+                  duration=STRESS_LANE_SECONDS if dname == "float64" else STRESS_LANE_F32_SECONDS,
+                  filter_dtype=getattr(torch, dname))
         if not out:
             stress.run_stress_lanes(seeds, **dict(kw, duration=1.0))  # warm-up at these shapes
         torch.cuda.synchronize()
@@ -1583,6 +1595,206 @@ def phase_entry_point(card):
     return dict(result=result, stderr=side[-1] if side else None, seconds=secs)
 
 
+EUROC_CHUNK = 32  # the app's --chunk in the euroc phase
+EUROC_SPLIT = 30  # the checkpoint: frames before the save
+EUROC_SHORT = 40  # frames of the batch app's second sequence
+
+
+def lk_launches_per_frame(fcfg) -> int:
+    """``lk_corr_align`` launches a frame for a two-surface ``klt_norm``: the
+    temporal call, the candidates' coarse walk (one call per pyramid level
+    from 2 up, ``pyr0[2:]``), the level-1 pass when ``cand_level1``, and the
+    fused stereo call's three alignments."""
+    return 1 + (fcfg.pyramid_levels - 2) + int(fcfg.cand_level1) + 3
+
+
+def phase_euroc(scene, card):
+    """The EuRoC entry points at full size: the bench scene's FRAMES frames
+    written as a EuRoC ``mav0/`` directory (PNGs from ``io/png.py``, their
+    rows cycling through all five filters; IMU and ground-truth CSVs; the
+    EuRoC epoch base), then
+    - the decoder the apps use (native runtime or zlib, printed) gives the
+      rendered frames rounded to uint8 exactly, and each available backend's
+      decode time;
+    - ``apps/run_euroc.py``'s ``main`` with the three in-repo YAMLs,
+      ``--chunk 32 --ate``, launch counts zeroed just before and read just
+      after (``lk_launches_per_frame`` of the loaded config, 4
+      ``extract_template``, 1 ``resample_template`` a frame): a TUM file of
+      FRAMES rows at epoch times, ATE under 0.13 m, poses within 1e-6 m of
+      ``run_vio_sequence`` on the same decoded frames and configs, frames/s,
+      decode ms a frame, and host syncs a frame (one more run in torch's
+      sync debug mode);
+    - a checkpoint after EUROC_SPLIT frames, loaded into a fresh template,
+      the rest run from it: poses within 1e-6 m of the uninterrupted run;
+    - ``apps/run_euroc_batch.py`` on the FRAMES-frame sequence and its first
+      EUROC_SHORT frames (B=2, the second padded), launches per batched
+      frame as above: each lane's ATE under 0.13 m and within 2e-4 m of the
+      lane's sequence run alone by the batch app;
+    - ``entry.entry()``'s step on the card: a finite pose."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from msckf_stereo_c_torch.apps import run_euroc, run_euroc_batch
+    from msckf_stereo_c_torch.config import (
+        FilterConfig, FrontendConfig, load_camchain, load_filter_config, load_frontend_config)
+    from msckf_stereo_c_torch.entry import entry
+    from msckf_stereo_c_torch.io import native, png
+    from msckf_stereo_c_torch.io.checkpoint import load_state, save_state
+    from msckf_stereo_c_torch.io.euroc import ImageSource, load_sequence, synchronize_stereo
+    from msckf_stereo_c_torch.io.tum import read_tum
+    from msckf_stereo_c_torch.models.vio import init_vio_state, run_vio_sequence
+    from msckf_stereo_c_torch.ops import _cuda
+    from msckf_stereo_c_torch.sim.euroc_dataset import EUROC_EPOCH_NS, to_uint8, write_euroc
+
+    cfg = {flag: os.path.join(ROOT, "config", name) for flag, name in (
+        ("--camchain", "camchain-imucam-euroc.yaml"), ("--imgproc-config", "app_imgproc.yaml"),
+        ("--msckf-config", "app_msckfvio.yaml"))}
+    fcfg = load_frontend_config(cfg["--imgproc-config"])
+    mcfg = load_filter_config(cfg["--msckf-config"], FilterConfig(ns_iters=10))  # the app's card default
+    calib = load_camchain(cfg["--camchain"])
+    T = FRAMES
+    per_frame = dict(COMMON_LAUNCHES, lk_corr_align=lk_launches_per_frame(fcfg), lk_corr_align_gain=0)
+    frame_t, gt = scene.frame_t, scene.traj.p[scene.frame_idx]
+    out = dict(launches_per_frame_expected=per_frame)
+    with tempfile.TemporaryDirectory(prefix="euroc_") as tmp:
+        t0 = time.perf_counter()
+        imu = scene.imu
+        mav0 = write_euroc(os.path.join(tmp, f"seq{T}"), frame_t, scene.img0, scene.img1, imu.t, imu.gyro, imu.acc, gt)
+        short = write_euroc(os.path.join(tmp, f"seq{EUROC_SHORT}"), frame_t[:EUROC_SHORT], scene.img0[:EUROC_SHORT],
+                            scene.img1[:EUROC_SHORT], imu.t, imu.gyro, imu.acc, gt[:EUROC_SHORT])
+        out["write_seconds"] = time.perf_counter() - t0
+
+        # The decoder the apps use, and every backend's decode time.
+        seq = load_sequence(mav0)
+        times, files0, files1 = synchronize_stereo(seq)
+        check(len(times) == T, f"euroc: {len(times)} stereo frames read back, expected {T}")
+        want0, want1 = to_uint8(scene.img0).astype(np.float32), to_uint8(scene.img1).astype(np.float32)
+        t0 = time.perf_counter()
+        with ImageSource(files0) as s0, ImageSource(files1) as s1:
+            dec0, dec1 = s0.next(T), s1.next(T)
+            backend = s0.backend
+        dec_ms = (time.perf_counter() - t0) * 1e3 / (2 * T)
+        check(np.array_equal(dec0, want0) and np.array_equal(dec1, want1),
+              f"euroc: frames decoded by the {backend} backend differ from the rendered ones rounded to uint8")
+        t0 = time.perf_counter()
+        zdec = png.decode_pngs(files0 + files1)
+        zlib_ms = (time.perf_counter() - t0) * 1e3 / (2 * T)
+        check(np.array_equal(zdec[:T], want0) and np.array_equal(zdec[T:], want1),
+              "euroc: the zlib decoder differs from the rendered frames rounded to uint8")
+        native_ms = None
+        if native.available():
+            t0 = time.perf_counter()
+            ndec = np.stack([native.decode_png(f, 752, 480) for f in files0 + files1])
+            native_ms = (time.perf_counter() - t0) * 1e3 / (2 * T)
+            check(np.array_equal(ndec[:T], want0) and np.array_equal(ndec[T:], want1),
+                  "euroc: the native decoder differs from the rendered frames rounded to uint8")
+        out.update(backend=backend, native_build_error=native.build_error(), decode_ms_per_image=dec_ms,
+                   zlib_ms_per_image=zlib_ms, native_ms_per_image=native_ms)
+        print(f"[euroc] {T} frames written as EuRoC in {out['write_seconds']:.1f} s; the apps decode with the "
+              f"{backend} backend ({run_euroc.decoder_line(backend)}): {2 * T} images equal the rendered frames "
+              f"rounded to uint8, {dec_ms:.2f} ms an image; zlib decoder alone {zlib_ms:.2f} ms an image, native "
+              f"{'not built' if native_ms is None else f'{native_ms:.2f} ms an image'}, on the host of {card}")
+
+        # The app, timed with its launches counted, then once more with
+        # every host sync counted.
+        pose_out = os.path.join(tmp, "pose.txt")
+        argv = [mav0, "--chunk", str(EUROC_CHUNK), "--ate", "--out", pose_out]
+        argv += [x for kv in cfg.items() for x in kv]
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        app = run_euroc.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_cuda.launch_counts)
+        check(app.backend == backend, f"euroc: the app decoded with {app.backend}, expected {backend}")
+        check(counts == {k: v * T for k, v in per_frame.items()},
+              f"euroc app: launches {counts}, expected per frame {per_frame}")
+        tum_t, _, _ = read_tum(pose_out)
+        check(tum_t.shape == (T,), f"euroc app: the TUM file has {tum_t.shape[0]} rows, expected {T}")
+        check(bool(np.all(np.abs(tum_t - (EUROC_EPOCH_NS * 1e-9 + frame_t)) < 2e-6)),
+              "euroc app: TUM times are not the frames' epoch times")
+        check(bool(np.isfinite(app.positions).all()), "euroc app: non-finite poses")
+        ate = app.ate.rmse
+        check(ate < 0.13, f"euroc app: ATE {ate} m is above the 0.13 m pass bar")
+        decode_ms = app.timer.totals["decode_images"] * 1e3 / T
+        sites = count_syncs(lambda: run_euroc.main(argv))
+        sites = {k: v for k, v in sorted(sites.items(), key=lambda kv: -kv[1])}
+
+        t_base = min(times[0], seq.imu.t[0])
+        rel_t, imu_t = times - t_base, seq.imu.t - t_base
+
+        def direct(s0, s1, **kw):
+            return run_vio_sequence(fcfg, mcfg, calib, rel_t[s0:s1], dec0[s0:s1], dec1[s0:s1], imu_t, seq.imu.gyro,
+                                    seq.imu.acc, filter_dtype=torch.float32, method="schur", device="cuda", **kw)
+
+        whole = direct(0, T)
+        app_gap = float(np.abs(app.positions - whole.positions).max())
+        check(app_gap <= 1e-6, f"euroc: the app's poses are {app_gap} m from run_vio_sequence's (> 1e-6 m)")
+
+        # Checkpoint after EUROC_SPLIT frames, resume from a fresh template.
+        first = direct(0, EUROC_SPLIT)
+        ckpt = os.path.join(tmp, "state.npz")
+        save_state(ckpt, first.final_state)
+        template = init_vio_state(fcfg, mcfg, calib, (480, 752), torch.float32, torch.float32, "cuda")
+        rest = direct(EUROC_SPLIT, T, state=load_state(ckpt, template), prev_frame_t=float(rel_t[EUROC_SPLIT - 1]))
+        resumed = np.concatenate([first.positions, rest.positions])
+        ckpt_gap = float(np.abs(resumed - whole.positions).max())
+        check(ckpt_gap <= 1e-6, f"euroc: the resumed run is {ckpt_gap} m from the uninterrupted one (> 1e-6 m)")
+        out.update(frames=T, seconds=secs, fps=T / secs, loop_seconds=app.seconds, decode_ms_per_frame=decode_ms,
+                   launches=counts, ate_rmse_m=ate, app_vs_direct_m=app_gap, resume_vs_whole_m=ckpt_gap,
+                   syncs_per_frame=sum(sites.values()) / T, sync_sites={k: v / T for k, v in sites.items()})
+        print(f"[euroc] run_euroc: {T} frames in {secs:.3f} s = {T / secs:.2f} frames/s (B=1, start-up and "
+              f"decode included) on {card}; decode {decode_ms:.2f} ms a frame ({backend}); "
+              f"{out['syncs_per_frame']:.2f} host syncs a frame; ATE RMSE {ate:.6f} m; launches a frame "
+              f"{ {k: v // T for k, v in counts.items()} }")
+        print(f"[euroc] app against run_vio_sequence: {app_gap:.3e} m; checkpoint after frame {EUROC_SPLIT} "
+              f"resumed: {ckpt_gap:.3e} m from the uninterrupted run")
+
+        # The batch app: B=2, the second lane padded after EUROC_SHORT frames.
+        bargv = ["--chunk", str(EUROC_CHUNK), "--ate", "--out-dir", os.path.join(tmp, "poses")]
+        per_batched = dict(COMMON_LAUNCHES, lk_corr_align=lk_launches_per_frame(FrontendConfig()),
+                           lk_corr_align_gain=0)
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        lanes = run_euroc_batch.main([mav0, short] + bargv)
+        torch.cuda.synchronize()
+        bsecs = time.perf_counter() - t0
+        bcounts = dict(_cuda.launch_counts)
+        check(bcounts == {k: v * T for k, v in per_batched.items()},
+              f"euroc batch app: launches {bcounts}, expected per batched frame {per_batched}")
+        rows = []
+        for path, lane in zip((mav0, short), lanes):
+            alone = run_euroc_batch.main([path] + bargv[:-1] + [os.path.join(tmp, "alone")])[0]
+            gap = abs(lane.ate.rmse - alone.ate.rmse)
+            rows.append(dict(name=lane.name, frames=len(lane.times), ate_batched_m=lane.ate.rmse,
+                             ate_alone_m=alone.ate.rmse, ate_gap_m=gap,
+                             pose_gap_m=float(np.abs(lane.positions - alone.positions).max())))
+            print(f"[euroc] run_euroc_batch lane {lane.name} ({len(lane.times)} frames): ATE {lane.ate.rmse:.6f} m "
+                  f"batched, {alone.ate.rmse:.6f} m alone ({gap:.2e} m apart, poses {rows[-1]['pose_gap_m']:.2e} m)")
+            check(bool(np.isfinite(lane.positions).all()), f"euroc batch app: non-finite poses in {lane.name}")
+            check(lane.ate.rmse < 0.13, f"euroc batch app: {lane.name} ATE {lane.ate.rmse} m above 0.13 m")
+            check(gap <= 2e-4, f"euroc batch app: {lane.name} ATE {lane.ate.rmse} m batched vs {alone.ate.rmse} m "
+                               f"alone (> 2e-4 m apart)")
+        out["batch"] = dict(lanes=rows, seconds=bsecs, fps=sum(len(r.times) for r in lanes) / bsecs,
+                            launches=bcounts)
+        print(f"[euroc] run_euroc_batch: B=2 x {T} padded frames in {bsecs:.3f} s "
+              f"({out['batch']['fps']:.2f} unpadded frames/s aggregate, decode included) on {card}; launches per "
+              f"batched frame { {k: v // T for k, v in bcounts.items()} }")
+
+    fn, args = entry()
+    _, (pose, _) = fn(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(pose.p).all()), "entry(): non-finite pose")
+    out["entry_pose"] = pose.p.cpu().tolist()
+    print(f"[euroc] entry(): one vio_step at 752x480 ('cholesky', ns_iters=0) on the card, pose "
+          f"{out['entry_pose']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke"),
@@ -1638,6 +1850,7 @@ def main(argv=None) -> int:
     lanes_out = timed("distinct lanes", phase_distinct_lanes, scene, fcfg, mcfg, card)
     batch_out = timed("batch sweep", phase_batch_sweep, scene, head_state, fcfg, mcfg, card, args.out)
     entry_out = timed("entry point", phase_entry_point, card)
+    euroc_out = timed("euroc", phase_euroc, scene, card)
     stress_out = timed("stress path", phase_stress, card)
     stress_lanes_out = timed("stress lanes", phase_stress_lanes, card)
 
@@ -1672,7 +1885,7 @@ def main(argv=None) -> int:
                    "build_logs": build["logs"], "kernel_rows": rows, "stack_kernel_rows": stack_rows,
                    "main_path": main_out, "mode_sweep": sweep_out, "methods": methods_out, "profile": prof_out,
                    "stages": stage_out, "stress_lanes": stress_lanes_out,
-                   "distinct_lanes": lanes_out, "batch_sweep": batch_out, "entry_point": entry_out,
+                   "distinct_lanes": lanes_out, "batch_sweep": batch_out, "entry_point": entry_out, "euroc": euroc_out,
                    "stress_path": stress_out, "phase_seconds": phase_seconds, "seconds": time.time() - t_start},
                   f, indent=1)
     print(f"[done] {time.time() - t_start:.1f} s")

@@ -211,12 +211,12 @@ def main(device=None) -> dict:
     _sync(dev)
     dt = (time.perf_counter() - t0) / reps
 
-    fps = B * n_frames / dt
+    fps = round(B * n_frames / dt, 2)
     result = {
         "metric": "vio_frames_per_sec_per_chip",
-        "value": round(fps, 2),
+        "value": fps,
         "unit": "frames/s",
-        "vs_baseline": round(fps / 40.0, 3),
+        "vs_baseline": round(fps / 40.0, 3),  # of the printed value, so the two always agree
     }
     print(json.dumps(result))
     ates = lane_ates(scene, poses.p.cpu().numpy())

@@ -3,16 +3,21 @@
 The port keeps its own copy of the configuration dataclasses so that it
 imports nothing of the JAX package; ``tests/test_torch_vio.py`` holds the
 fields and defaults equal to ``msckf_stereo_c_tpu/config.py``, which carries
-the measured rationale for every default.  YAML loaders are not ported yet.
+the measured rationale for every default.  The YAML loaders read the
+repository's config files through ``io/yaml_subset.py`` (no PyYAML) and give
+field for field what the JAX package's loaders give.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import warnings
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from .io.yaml_subset import read_yaml
 
 Vec3 = Tuple[float, float, float]
 Vec4 = Tuple[float, float, float, float]
@@ -274,3 +279,119 @@ def resolve_device(device) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def _mat4_from_yaml(node) -> Mat4:
+    flat = np.asarray(node, dtype=np.float64).reshape(-1)
+    if flat.size != 16:
+        raise ValueError(f"expected 16-element matrix, got {flat.size}")
+    return tuple(float(v) for v in flat)
+
+
+def load_camchain(path: str) -> StereoCalib:
+    """Parse a Kalibr-style camchain YAML (reference config_io.h decoders)."""
+    node = read_yaml(path)
+
+    def cam(key: str) -> CameraCalib:
+        c = node[key]
+        return CameraCalib(
+            intrinsics=tuple(float(v) for v in c["intrinsics"]),
+            distortion_model=str(c["distortion_model"]),
+            distortion_coeffs=tuple(float(v) for v in c["distortion_coeffs"]),
+            resolution=tuple(int(v) for v in c["resolution"]),
+            T_cam_imu=_mat4_from_yaml(c["T_cam_imu"]),
+        )
+
+    return StereoCalib(
+        cam0=cam("cam0"),
+        cam1=cam("cam1"),
+        T_cn_cnm1=_mat4_from_yaml(node["cam1"]["T_cn_cnm1"]),
+        T_imu_body=_mat4_from_yaml(node.get("T_imu_body", list(_IDENTITY4))),
+    )
+
+
+def load_frontend_config(path: str) -> FrontendConfig:
+    """The front end's YAML (``config/app_imgproc.yaml``) over the defaults.
+    Keys it does not name keep their defaults; it reads no
+    ``pyramid_levels``, as the JAX loader reads none."""
+    node = read_yaml(path)
+    base = FrontendConfig()
+    # presmooth pairs with the compensated FAST threshold 7; a YAML that pins
+    # the reference's raw-pixel threshold (>= 10) without naming presmooth
+    # gets the raw-pixel pairing (the JAX loader's rule and warning).
+    if "presmooth" not in node and int(node.get("fast_threshold", 0)) >= 10:
+        warnings.warn(
+            f"{path}: fast_threshold={node['fast_threshold']} without an "
+            "explicit 'presmooth' key — defaulting presmooth to false (the "
+            "raw-pixel pairing). Set 'presmooth: true' with a lower "
+            "threshold (e.g. 7) for the sensor-noise prefilter.",
+            stacklevel=2,
+        )
+        base = dataclasses.replace(base, presmooth=False)
+    return dataclasses.replace(
+        base,
+        matmul_precision=str(node.get("matmul_precision", base.matmul_precision)),
+        grid_row=int(node.get("grid_row", base.grid_row)),
+        grid_col=int(node.get("grid_col", base.grid_col)),
+        grid_min_feature_num=int(node.get("grid_min_feature_num", base.grid_min_feature_num)),
+        grid_max_feature_num=int(node.get("grid_max_feature_num", base.grid_max_feature_num)),
+        patch_size=int(node.get("patch_size", base.patch_size)),
+        fast_threshold=int(node.get("fast_threshold", base.fast_threshold)),
+        max_iteration=int(node.get("max_iteration", base.max_iteration)),
+        track_precision=float(node.get("track_precision", base.track_precision)),
+        ransac_threshold=float(node.get("ransac_threshold", base.ransac_threshold)),
+        stereo_threshold=float(node.get("stereo_threshold", base.stereo_threshold)),
+        klt_impl=str(node.get("klt_impl", base.klt_impl)),
+        klt_norm=str(node.get("klt_norm", base.klt_norm)),
+        temporal_levels=int(node.get("temporal_levels", base.temporal_levels)),
+        stereo_levels=int(node.get("stereo_levels", base.stereo_levels)),
+        tmpl_carry=bool(node.get("tmpl_carry", base.tmpl_carry)),
+        cand_budget=int(node.get("cand_budget", base.cand_budget)),
+        ransac_enabled=bool(node.get("ransac_enabled", base.ransac_enabled)),
+        stereo_lr_threshold=float(node.get("stereo_lr_threshold", base.stereo_lr_threshold)),
+        presmooth=bool(node.get("presmooth", base.presmooth)),
+        cand_level1=bool(node.get("cand_level1", base.cand_level1)),
+        stereo_lr_survivors=bool(node.get("stereo_lr_survivors", base.stereo_lr_survivors)),
+        anchor_refine=bool(node.get("anchor_refine", base.anchor_refine)),
+        translation_seed=bool(node.get("translation_seed", base.translation_seed)),
+    )
+
+
+def load_filter_config(path: str, base: FilterConfig | None = None) -> FilterConfig:
+    """The filter's YAML (``config/app_msckfvio.yaml``) over ``base``
+    (the defaults when None)."""
+    node = read_yaml(path)
+    base = base if base is not None else FilterConfig()
+    return dataclasses.replace(
+        base,
+        frame_rate=float(node.get("frame_rate", base.frame_rate)),
+        max_cam_state_size=int(node.get("max_cam_state_size", base.max_cam_state_size)),
+        position_std_threshold=float(node.get("position_std_threshold", base.position_std_threshold)),
+        rotation_threshold=float(node.get("rotation_threshold", base.rotation_threshold)),
+        translation_threshold=float(node.get("translation_threshold", base.translation_threshold)),
+        tracking_rate_threshold=float(node.get("tracking_rate_threshold", base.tracking_rate_threshold)),
+        feature_translation_threshold=float(
+            node.get("feature/config/translation_threshold", base.feature_translation_threshold)
+        ),
+        noise_gyro=float(node.get("noise/gyro", base.noise_gyro)),
+        noise_acc=float(node.get("noise/acc", base.noise_acc)),
+        noise_gyro_bias=float(node.get("noise/gyro_bias", base.noise_gyro_bias)),
+        noise_acc_bias=float(node.get("noise/acc_bias", base.noise_acc_bias)),
+        noise_feature=float(node.get("noise/feature", base.noise_feature)),
+        initial_velocity=tuple(float(v) for v in node.get("initial_state/velocity", base.initial_velocity)),
+        initial_cov_velocity=float(node.get("initial_covariance/velocity", base.initial_cov_velocity)),
+        initial_cov_gyro_bias=float(node.get("initial_covariance/gyro_bias", base.initial_cov_gyro_bias)),
+        initial_cov_acc_bias=float(node.get("initial_covariance/acc_bias", base.initial_cov_acc_bias)),
+        initial_cov_extrinsic_rotation=float(
+            node.get("initial_covariance/extrinsic_rotation_cov", base.initial_cov_extrinsic_rotation)
+        ),
+        initial_cov_extrinsic_translation=float(
+            node.get("initial_covariance/extrinsic_translation_cov", base.initial_cov_extrinsic_translation)
+        ),
+        ns_iters=int(node.get("ns_iters", base.ns_iters)),
+        max_update_tracks=int(node.get("max_update_tracks", base.max_update_tracks)),
+        matmul_precision=str(node.get("matmul_precision", base.matmul_precision)),
+        noise_adaptive=bool(node.get("noise_adaptive", base.noise_adaptive)),
+        noise_snr_ref=float(node.get("noise_snr_ref", base.noise_snr_ref)),
+        noise_inflation_cap=float(node.get("noise_inflation_cap", base.noise_inflation_cap)),
+    )

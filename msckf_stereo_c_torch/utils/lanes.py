@@ -25,6 +25,19 @@ def map_tree(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
     return fn(tree)
 
 
+def stack_lanes(trees) -> Any:
+    """One batched tree from the one-lane trees ``trees`` (same structure),
+    each tensor stacked along a new leading lane axis."""
+    first = trees[0]
+    if first is None:
+        return None
+    if hasattr(first, "_fields"):
+        return type(first)(*(stack_lanes(list(xs)) for xs in zip(*trees)))
+    if isinstance(first, (tuple, list)):
+        return tuple(stack_lanes(list(xs)) for xs in zip(*trees))
+    return torch.stack(list(trees))
+
+
 def add_lane_axis(tree: Any) -> Any:
     """One sequence as a batch of one lane (views, no copy)."""
     return map_tree(lambda x: x.unsqueeze(0), tree)

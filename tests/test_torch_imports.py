@@ -73,3 +73,40 @@ def test_stress_script_modules_are_covered():
     assert new <= set(_port_modules())
     paths = {os.path.relpath(p, ROOT) for p in _sources()}
     assert {"msckf_stereo_c_torch/scripts/__init__.py", "msckf_stereo_c_torch/scripts/stress_gate.py"} <= paths
+
+
+DATASET_MODULES = {
+    "msckf_stereo_c_torch.io.yaml_subset", "msckf_stereo_c_torch.io.euroc", "msckf_stereo_c_torch.io.native",
+    "msckf_stereo_c_torch.io.png", "msckf_stereo_c_torch.io.checkpoint", "msckf_stereo_c_torch.io.live_viewer",
+    "msckf_stereo_c_torch.utils.timing", "msckf_stereo_c_torch.apps", "msckf_stereo_c_torch.apps.run_euroc",
+    "msckf_stereo_c_torch.apps.run_euroc_batch", "msckf_stereo_c_torch.entry",
+    "msckf_stereo_c_torch.sim.euroc_dataset",
+}
+
+
+def test_dataset_modules_are_covered():
+    """The config reader, the EuRoC I/O, the checkpoints, the timer, the
+    apps and the entry point are among the modules imported without JAX and
+    scanned for its names above."""
+    assert DATASET_MODULES <= set(_port_modules())
+    paths = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {m.replace(".", "/") + ".py" for m in DATASET_MODULES - {"msckf_stereo_c_torch.apps"}} <= paths
+
+
+def test_port_imports_no_yaml_cv2_or_pil():
+    """The card host need not have PyYAML, OpenCV or Pillow: no module of
+    the port, and not chip_smoke.py, imports them (the CPU tests use them
+    only as references)."""
+    modules = _port_modules() + ["chip_smoke"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('yaml', '_yaml', 'cv2', 'PIL'))\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"} | {"PYTHONPATH": ROOT},
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
