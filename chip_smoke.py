@@ -23,7 +23,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ``extract_template``, 1 ``resample_template`` and none of the others per
    frame); frames/s, ATE, tracks, host syncs;
 5. mode sweep: each ``klt_norm`` mode over 20 bench frames, with the exact
-   launch split per frame it must give (``MODE_SPLIT``);
+   launch split per frame it must give (``launches_per_frame``);
 6. methods: the last METHOD_FRAMES bench frames from the state the frames
    before them leave, under each filter method (``METHOD_RUNS``: 'qr',
    'cholesky' and 'schur' with exact solves and 'schur' with 10
@@ -63,7 +63,18 @@ Phases, each of which fails the run (exit code 1) if it fails:
    save and resume, ``apps/run_euroc_batch.py`` with B=2 (one lane padded)
    against one-lane runs, and ``entry.entry()``'s step on the card
    (``phase_euroc``);
-13. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
+13. frontend paths: the tracker's paths off the bench configuration at
+   752x480 through ``run_vio_sequence`` (``phase_frontend_paths``): the
+   fast-motion scene at temporal LK depths 2 and 4, and 1 where the
+   phase's 100 s allow it, with tests/test_fast_motion.py's bars, the reference's own tracker
+   (``REFERENCE_TRACKER``) over the 60 bench frames with its RANSAC
+   rejections counted, and ``BENCH_PATHS`` over 20 bench frames each; every
+   run's launches exact (``launches_per_frame``), frames/s, ATE, and its
+   host syncs by site, every site one the bench configuration has; then
+   ``lk_corr_align`` and ``extract_template`` on the new call patterns
+   (temporal levels 2 and 3 with two lanes folded in, the standalone anchor
+   call) against their plain versions;
+14. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
    (721 stereo frames rendered on the card with every stress channel on,
    ``klt_norm='gain'``), launch counts zeroed just before and read just
    after (7 ``lk_corr_align_gain``, 4 ``extract_template``, 1
@@ -71,7 +82,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    and track bars,
    frames/s and render time; then the first STRESS_STAGE_SECONDS again with
    each stage timed and its host syncs counted;
-14. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
+15. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
    ``sim/stress.py:run_stress_lanes`` run over STRESS_LANE_SECONDS of the
    stress scene (``klt_norm='none'``; each lane its own landmarks, IMU
    noise, photometric draws and images), launches 7 / 4 / 1 per batched
@@ -80,7 +91,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ATEs within 2e-4 m, in float32 (the stress script's dtype, whose batched
    products round by batch shape; over STRESS_LANE_F32_SECONDS) the ATE
    gap recorded;
-15. the card's name and power limit, the ``{"kernels": [...]}`` line, then
+16. the card's name and power limit, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Details go to ``<out>/chip_smoke.json``.  The script imports nothing of JAX
@@ -141,18 +152,28 @@ STRESS_LANE_F32_SECONDS = 3.0  # its length in float32 (61 stereo frames)
 # Lanes of the batch sweep: bench.py's B=16 and powers of four around it,
 # up to where the card, not the host, sets the batched frame's time.
 SWEEP_BATCHES = (1, 4, 16, 64, 256, 1024)
-# lk_corr_align and lk_corr_align_gain launches per frame for each
-# klt_norm mode (every mode: 4 extract_template, 1 resample_template, no K2,
-# K1 or K3).  A two-surface problem ('none', 'zeromean') is one
-# lk_corr_align launch, a three-surface one ('offset', 'gain') one
-# lk_corr_align_gain launch; 'anchor_gain' is three-surface on the anchor
-# problem only.
-MODE_SPLIT = {
-    "zeromean": (7, 0), "offset": (0, 7), "gain": (0, 7), "mixed": (0, 7), "anchor_gain": (6, 1),
+# The [frontend-paths] phase (ported in slice 8): the fast-motion scene
+# (tests/test_fast_motion.py) at each temporal LK depth with its ATE bar,
+# the reference's own tracker over the FRAMES bench frames, and the bench
+# scene's other paths over PATH_FRAMES frames each; host syncs counted over
+# SYNC_FRAMES frames of each.  The FAST_LAST depth runs last, and only if
+# the phase, at its pace so far, ends within PATHS_SECONDS.
+FAST_TLEVELS = ((2, 0.13), (4, 0.25))
+FAST_LAST = (1, 0.13)
+PATHS_SECONDS = 100.0
+PATH_FRAMES = 20
+SYNC_FRAMES = 10
+REFERENCE_TRACKER = dict(
+    pyramid_levels=4, temporal_levels=4, stereo_levels=4, tmpl_carry=False, anchor_refine=False,
+    translation_seed=False, stereo_lr_threshold=0.0, presmooth=False, fast_threshold=10, cand_budget=0,
+    ransac_enabled=True,
+)
+BENCH_PATHS = {
+    "unfused, carried templates, standalone anchor": dict(stereo_lr_threshold=0.0),
+    "left-right check on candidates only": dict(stereo_lr_survivors=False),
+    "two temporal levels, 'gain'": dict(temporal_levels=2, klt_norm="gain"),
+    "gather LK": dict(klt_impl="gather"),
 }
-# The launches per frame every path and mode shares.
-COMMON_LAUNCHES = dict(extract_template=4, resample_template=1, extract_windows=0, lk_corr_iterate=0,
-                       lk_corr_iterate_gain=0)
 
 KERNEL_SOURCES = {
     "lk_corr_iterate": (
@@ -761,7 +782,7 @@ def phase_main_path(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
     print(f"[main] launches: {counts}")
     check(ate < 0.13, f"ATE {ate} m is above the 0.13 m pass bar")
     check(np.min(tracks[1:]) >= 10, "the tracker lost the scene")
-    want = dict(COMMON_LAUNCHES, lk_corr_align=7, lk_corr_align_gain=0)
+    want = launches_per_frame(fcfg)
     check(counts == {k: v * T for k, v in want.items()},
           f"main path launches {counts}, expected per frame {want}")
     return out
@@ -892,9 +913,8 @@ def lk_rows(tag, img_a, img_b, fcfg, norm):
 
 def phase_mode_sweep(traj, imu, frame_idx, img0, img1, mcfg):
     """Each photometric mode over the first SWEEP_FRAMES bench frames: the
-    exact lk_corr_align / lk_corr_align_gain split per frame (MODE_SPLIT),
-    with the launches every mode shares (COMMON_LAUNCHES), and finite
-    poses."""
+    exact launch split per frame of each mode (``launches_per_frame``), and
+    finite poses."""
     import numpy as np
     import torch
 
@@ -905,7 +925,7 @@ def phase_mode_sweep(traj, imu, frame_idx, img0, img1, mcfg):
     T = SWEEP_FRAMES
     frame_t = traj.t[frame_idx[:T]]
     out = {}
-    for mode, (al, alg) in MODE_SPLIT.items():
+    for mode in ("zeromean", "offset", "gain", "mixed", "anchor_gain"):
         fcfg = FrontendConfig(temporal_levels=1, klt_norm=mode)
         _cuda.reset_launch_counts()
         t0 = time.perf_counter()
@@ -922,7 +942,7 @@ def phase_mode_sweep(traj, imu, frame_idx, img0, img1, mcfg):
               f"K3 {per['lk_corr_iterate_gain']:.0f} launches/frame over {T} frames ({secs:.2f} s incl. "
               f"first-call set-up), {out[mode]['tracks_per_frame_mean']:.1f} tracks/frame")
         check(bool(np.isfinite(res.positions).all()), f"non-finite poses under klt_norm={mode!r}")
-        want = dict(COMMON_LAUNCHES, lk_corr_align=al, lk_corr_align_gain=alg)
+        want = launches_per_frame(fcfg)
         check(c == {k: v * T for k, v in want.items()},
               f"klt_norm={mode!r}: launches {c}, expected per frame {want}")
     return out
@@ -981,7 +1001,7 @@ def phase_stress(card):
           f"mean {tracks.mean():.1f} (bar 30), min {gate.min_tracks_after_ransac} (bar > 3)")
     print(f"[stress] launches: {counts}; peak device memory {out['peak_memory_gb']:.2f} GB")
     check(bool(np.isfinite(gate.result.positions).all()), "non-finite poses on the stress path")
-    want = dict(COMMON_LAUNCHES, lk_corr_align=0, lk_corr_align_gain=7)
+    want = launches_per_frame(kw["fcfg"])
     check(counts == {k: v * T for k, v in want.items()},
           f"stress path launches {counts}, expected per frame {want}")
     check(gate.ate_rmse < 0.13, f"stress ATE {gate.ate_rmse} m is above the 0.13 m bar")
@@ -1029,7 +1049,7 @@ def phase_methods(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
     T = METHOD_FRAMES
     gt = traj.p[frame_idx[k0:]]
     _, head = _resume_split(traj, imu, frame_idx, img0, img1, fcfg, mcfg, METHOD_FRAMES)
-    want = dict(COMMON_LAUNCHES, lk_corr_align=7, lk_corr_align_gain=0)
+    want = launches_per_frame(fcfg)
 
     def cast(state, dtype):
         filt = map_tree(lambda x: x.to(dtype) if x.is_floating_point() else x, state.filt)
@@ -1118,7 +1138,7 @@ def phase_stress_lanes(card):
     from msckf_stereo_c_torch.sim import stress
 
     seeds = list(STRESS_LANE_SEEDS)
-    want = dict(COMMON_LAUNCHES, lk_corr_align=7, lk_corr_align_gain=0)
+    want = launches_per_frame(FrontendConfig(klt_norm="none"))
     out = {}
     for dname in ("float64", "float32"):
         kw = dict(fcfg=FrontendConfig(klt_norm="none"),
@@ -1437,7 +1457,7 @@ def phase_distinct_lanes(scene, fcfg, mcfg, card):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = dict(_cuda.launch_counts)
-    want = dict(COMMON_LAUNCHES, lk_corr_align=7, lk_corr_align_gain=0)
+    want = launches_per_frame(fcfg)
     check(counts == {k: v * T for k, v in want.items()},
           f"distinct lanes: launches {counts}, expected per batched frame {want}")
     est = poses.p.cpu().numpy()
@@ -1501,7 +1521,7 @@ def phase_batch_sweep(scene, head_state, fcfg, mcfg, card, out_dir):
                                np.float32, prev_frame_t=float(frame_t[k0 - 1]), device=dev)
     fparams = make_frontend_params(EUROC_CALIB, f32, dev)
     mparams = make_params(mcfg, EUROC_CALIB, f32, dev)
-    want = dict(COMMON_LAUNCHES, lk_corr_align=7, lk_corr_align_gain=0)
+    want = launches_per_frame(fcfg)
     rows = []
     for B in SWEEP_BATCHES:
         states = broadcast_state(head_state, B)
@@ -1600,12 +1620,72 @@ EUROC_SPLIT = 30  # the checkpoint: frames before the save
 EUROC_SHORT = 40  # frames of the batch app's second sequence
 
 
-def lk_launches_per_frame(fcfg) -> int:
-    """``lk_corr_align`` launches a frame for a two-surface ``klt_norm``: the
-    temporal call, the candidates' coarse walk (one call per pyramid level
-    from 2 up, ``pyr0[2:]``), the level-1 pass when ``cand_level1``, and the
-    fused stereo call's three alignments."""
-    return 1 + (fcfg.pyramid_levels - 2) + int(fcfg.cand_level1) + 3
+def launches_per_frame(fcfg, img_shape=(480, 752)) -> dict:
+    """Hand-kernel launches of one (batched) frame of the tracker under
+    ``fcfg``, as ``models/frontend.py`` takes its paths:
+
+    - each corr LK level is one ``extract_template`` and one alignment
+      (``lk_corr_align`` for a two-surface norm, ``lk_corr_align_gain`` for
+      a three-surface one) unless its image is too small for a window;
+    - temporal: one alignment on carried templates (template carry: one
+      temporal and one stereo level), else ``temporal_levels`` levels;
+    - anchor: one alignment on the birth templates, standalone where the
+      fused call is off (it needs template carry);
+    - candidates: the levels from 3 down to 2 in one call, then level 1
+      (``cand_level1``), each level between them and the shared fine
+      levels;
+    - fine level: the fused call (forward: a template and an alignment;
+      backward: ``resample_template`` and an alignment), or one level with
+      its template kept (template carry), or ``stereo_levels`` levels, then
+      the unfused left-right pass (one level);
+    - ``klt_impl`` 'gather' and 'gemm' launch nothing (the gather LK is
+      plain PyTorch).
+    """
+    counts = dict.fromkeys(KERNEL_SOURCES, 0)
+    if fcfg.klt_impl != "corr":
+        return counts
+    P, L = fcfg.patch_size, fcfg.pyramid_levels
+    norm, anchor_norm = {"mixed": ("offset", "gain"), "anchor_gain": ("none", "gain")}.get(
+        fcfg.klt_norm, (fcfg.klt_norm, fcfg.klt_norm))
+
+    def align(n, how=norm):
+        counts["lk_corr_align" if how in ("none", "zeromean") else "lk_corr_align_gain"] += n
+
+    def level_runs(lvl):
+        h, w = img_shape
+        for _ in range(lvl):
+            h, w = (h + 1) // 2, (w + 1) // 2
+        return min(h, w) >= P + 4 and min(P + 20, h, w) >= P + 2
+
+    def lk(levels):
+        n = sum(level_runs(lvl) for lvl in levels)
+        align(n)
+        counts["extract_template"] += n
+
+    carry = fcfg.tmpl_carry and fcfg.temporal_levels == 1 and fcfg.stereo_levels == 1
+    fused = (fcfg.stereo_levels == 1 and fcfg.stereo_lr_threshold > 0 and fcfg.stereo_lr_survivors
+             and min(img_shape) >= P + 22)
+    anchor = fcfg.anchor_refine and carry
+    sl = max(1, min(fcfg.stereo_levels, L))
+    if carry:
+        align(level_runs(0))
+    else:
+        lk(range(min(fcfg.temporal_levels, L)))
+    if anchor and not fused:
+        align(level_runs(0), anchor_norm)
+    if L > 2:
+        lk(range(2, L))
+    lk([lvl for lvl in range(min(2, L) - 1, sl - 1, -1) if lvl != 1 or fcfg.cand_level1])
+    if fused:
+        align(int(anchor), anchor_norm)
+        align(2)
+        counts["extract_template"] += 1
+        counts["resample_template"] += 1
+    else:
+        lk(range(1 if carry else sl))
+        if fcfg.stereo_lr_threshold > 0:
+            lk([0])
+    return counts
 
 
 def phase_euroc(scene, card):
@@ -1618,8 +1698,7 @@ def phase_euroc(scene, card):
       decode time;
     - ``apps/run_euroc.py``'s ``main`` with the three in-repo YAMLs,
       ``--chunk 32 --ate``, launch counts zeroed just before and read just
-      after (``lk_launches_per_frame`` of the loaded config, 4
-      ``extract_template``, 1 ``resample_template`` a frame): a TUM file of
+      after (``launches_per_frame`` of the loaded config): a TUM file of
       FRAMES rows at epoch times, ATE under 0.13 m, poses within 1e-6 m of
       ``run_vio_sequence`` on the same decoded frames and configs, frames/s,
       decode ms a frame, and host syncs a frame (one more run in torch's
@@ -1655,7 +1734,7 @@ def phase_euroc(scene, card):
     mcfg = load_filter_config(cfg["--msckf-config"], FilterConfig(ns_iters=10))  # the app's card default
     calib = load_camchain(cfg["--camchain"])
     T = FRAMES
-    per_frame = dict(COMMON_LAUNCHES, lk_corr_align=lk_launches_per_frame(fcfg), lk_corr_align_gain=0)
+    per_frame = launches_per_frame(fcfg)
     frame_t, gt = scene.frame_t, scene.traj.p[scene.frame_idx]
     out = dict(launches_per_frame_expected=per_frame)
     with tempfile.TemporaryDirectory(prefix="euroc_") as tmp:
@@ -1755,8 +1834,7 @@ def phase_euroc(scene, card):
 
         # The batch app: B=2, the second lane padded after EUROC_SHORT frames.
         bargv = ["--chunk", str(EUROC_CHUNK), "--ate", "--out-dir", os.path.join(tmp, "poses")]
-        per_batched = dict(COMMON_LAUNCHES, lk_corr_align=lk_launches_per_frame(FrontendConfig()),
-                           lk_corr_align_gain=0)
+        per_batched = launches_per_frame(FrontendConfig())
         torch.cuda.synchronize()
         _cuda.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1792,6 +1870,224 @@ def phase_euroc(scene, card):
     out["entry_pose"] = pose.p.cpu().tolist()
     print(f"[euroc] entry(): one vio_step at 752x480 ('cholesky', ns_iters=0) on the card, pose "
           f"{out['entry_pose']}")
+    return out
+
+
+def _path_run(label, fcfg, mcfg, traj, imu, frame_idx, img0, img1, allowed, card):
+    """``run_vio_sequence`` over the frames under ``fcfg`` (images host
+    arrays or card tensors), the launch counts zeroed just before and read
+    just after and held to ``launches_per_frame``; then SYNC_FRAMES frames
+    again in torch's sync debug mode, every synchronising site inside the
+    package among ``allowed`` (None: return the sites, check nothing).
+    Prints frames/s (B=1), ATE, syncs a frame by site and the split;
+    returns (results, sync sites)."""
+    import numpy as np
+    import torch
+
+    from msckf_stereo_c_torch.config import EUROC_CALIB
+    from msckf_stereo_c_torch.models.vio import run_vio_sequence
+    from msckf_stereo_c_torch.ops import _cuda
+
+    frame_t = traj.t[frame_idx]
+    T = len(frame_idx)
+
+    def run(n):
+        return run_vio_sequence(fcfg, mcfg, EUROC_CALIB, frame_t[:n], img0[:n], img1[:n], imu.t, imu.gyro, imu.acc,
+                                image_dtype=torch.float32, filter_dtype=torch.float32, method="schur",
+                                device="cuda")
+
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run(T)  # ends in a device-to-host copy of the outputs
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    sites = package_sites(count_syncs(lambda: run(SYNC_FRAMES)))
+    per = {k: v // T for k, v in counts.items()}
+    check(bool(np.isfinite(res.positions).all()), f"[paths] {label}: non-finite poses")
+    ate = _ate(frame_t, res.positions, traj.p[frame_idx])
+    tracks = res.tracking["after_ransac"]
+    want = launches_per_frame(fcfg)
+    out = dict(frames=T, seconds=secs, fps=T / secs, ate_rmse_m=ate, launches=counts, launches_per_frame=per,
+               tracks_per_frame_mean=float(np.mean(tracks)), min_tracks_last20=int(np.min(tracks[-20:])),
+               syncs_per_frame=sum(sites.values()) / SYNC_FRAMES,
+               sync_sites={k: v / SYNC_FRAMES for k, v in sorted(sites.items(), key=lambda kv: -kv[1])},
+               frames_matching_above_published=int(np.sum(res.tracking["after_matching"] > tracks)))
+    split = " / ".join(str(per[k]) for k in ("lk_corr_align", "lk_corr_align_gain", "extract_template",
+                                             "resample_template"))
+    print(f"[paths] {label}: {T} frames in {secs:.3f} s = {T / secs:.2f} frames/s (B=1) on {card}; ATE RMSE "
+          f"{ate:.5f} m; tracks mean {np.mean(tracks):.1f}, min over the last 20 {np.min(tracks[-20:])}; launches a "
+          f"frame {split} (lk_corr_align / lk_corr_align_gain / extract_template / resample_template; K2, K1, K3 "
+          f"{per['extract_windows']}/{per['lk_corr_iterate']}/{per['lk_corr_iterate_gain']}); host syncs a frame "
+          f"over {SYNC_FRAMES} frames {out['syncs_per_frame']:.2f}: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out["sync_sites"].items()))
+    check(counts == {k: v * T for k, v in want.items()},
+          f"[paths] {label}: launches {counts}, expected per frame {want}")
+    if allowed is not None:
+        new = sorted(set(sites) - allowed)
+        check(not new, f"[paths] {label}: host syncs at sites the bench path has none at: {new}")
+    return out, sites
+
+
+def pattern_rows(scene, fcfg):
+    """The kernels of the new call patterns against their plain versions
+    on the card, at the tolerances of ``align_rows`` and ``template_rows``:
+    level-2 and level-3 temporal calls with two lanes folded into the
+    feature axis (bench frames 20 -> 21 and 40 -> 41, 96 FAST corners each,
+    an int32 image index), and the standalone anchor call (frame 40's
+    templates, frame 41's image as both images of the call)."""
+    import torch
+
+    from msckf_stereo_c_torch.models.frontend import pyramids_for
+    from msckf_stereo_c_torch.ops import klt_corr as kc
+    from msckf_stereo_c_torch.utils.lanes import lane_index
+
+    P, iters, eps = fcfg.patch_size, fcfg.max_iteration, fcfg.track_precision
+    c_off, r = (P - 1) / 2.0, P // 2 + 1
+    dev = torch.device("cuda")
+
+    def stack(frames):
+        return pyramids_for(torch.as_tensor(scene.img0[frames], dtype=torch.float32).to(dev), fcfg)
+
+    prev, curr = stack([20, 40]), stack([21, 41])
+    pts = torch.cat([_best_corners(prev[0][b], fcfg, 96) for b in range(2)])
+    idx = lane_index(2, 96, dev)
+    rows = []
+
+    def check_align(tag, img, sp, guess, img_index):
+        H, W = img.shape[-2:]
+        S = min(P + 2 * kc._SEARCH_RADIUS + 2, H, W)
+        hi = float(S - P - 1)
+        tq = kc._template_quantities(sp, P, "none")
+        sorg = kc._clip_xy(torch.floor(guess) - S // 2, 0.0, W - S, H - S)
+        args = (img, sorg.to(torch.int32), S, tq.gx, tq.gy, kc._k1_sc(tq, guess - c_off - sorg, ~tq.good), iters, eps,
+                hi, img_index)
+        got, want = kc.lk_corr_align(*args), kc.lk_corr_align_reference(*args)
+        torch.cuda.synchronize()
+        pw, pg = want + c_off + sorg, got + c_off + sorg
+
+        def ok_mask(p):
+            return tq.good & (p[:, 0] >= r) & (p[:, 0] < W - r) & (p[:, 1] >= r) & (p[:, 1] < H - r)
+
+        border = torch.stack([pw[:, 0] - r, (W - r) - pw[:, 0], pw[:, 1] - r, (H - r) - pw[:, 1]], -1)
+        near = border.abs().min(-1).values < K1_TOL
+        m = ok_mask(pw)
+        check(torch.equal(ok_mask(pg)[~near], m[~near]), f"[paths] {tag}: valid mask differs from the plain version")
+        check(bool(torch.isfinite(got).all()), f"[paths] {tag}: non-finite output")
+        err = float((got - want)[m].abs().max()) if bool(m.any()) else 0.0
+        check(err <= K1_TOL, f"[paths] {tag}: lk_corr_align differs by {err} px (> {K1_TOL})")
+        rows.append(dict(name="lk_corr_align", pattern=tag, H=H, W=W, N=int(got.shape[0]), valid=int(m.sum()),
+                         near_border=int(near.sum()), max_abs_err=err))
+        print(f"[paths] {tag} {W}x{H} N={got.shape[0]}: lk_corr_align within {err:.2e} px of its plain version "
+              f"(tol {K1_TOL}), {int(m.sum())} valid lanes, masks equal ({int(near.sum())} lanes within {K1_TOL} "
+              f"px of the border exempt)")
+
+    for lvl in (2, 3):
+        p = (pts / 2.0**lvl).contiguous()
+        sp = kc.extract_template(prev[lvl], p, P, idx)
+        check(torch.equal(sp, kc.extract_template_reference(prev[lvl], p, P, idx)),
+              f"[paths] extract_template differs from its plain version at level {lvl} with lanes")
+        check_align(f"temporal level {lvl}, B=2 lanes", curr[lvl], sp, p, idx)
+    anchor = kc.extract_template(prev[0][1], pts[96:], P)
+    check_align("standalone anchor", curr[0][1], anchor, pts[96:], None)
+    return rows
+
+
+def phase_frontend_paths(scene, mcfg, card):
+    """The tracker's paths off the bench configuration at 752x480, each
+    through ``run_vio_sequence`` on the card (B=1) under the bench filter,
+    its launches held to ``launches_per_frame`` and its host syncs to the
+    sites the bench configuration has (counted on both scenes first):
+
+    a. the fast-motion scene of tests/test_fast_motion.py (6 s circle,
+       omega 2 pi / 8, roll 0.25, 500 wall landmarks, rendered on the
+       card) at each temporal depth of FAST_TLEVELS, and of FAST_LAST last
+       if it fits: min tracks over the last 20 frames > 15 and the test's
+       ATE bar;
+    b. the reference's own tracker (REFERENCE_TRACKER) over the FRAMES
+       bench frames: ATE < 0.13 m, and the tracks RANSAC rejects counted
+       on the card (the rejections summed into a device tensor, read once
+       after the run);
+    c. the bench scene's other paths (BENCH_PATHS) over PATH_FRAMES frames
+       each; the gather LK launches no hand kernel and keeps ATE < 0.13 m;
+    d. ``pattern_rows``: the kernels on the new call patterns against
+       their plain versions."""
+    import numpy as np
+    import torch
+
+    from msckf_stereo_c_torch.config import FrontendConfig
+    from msckf_stereo_c_torch.ops import ransac
+    from msckf_stereo_c_torch.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
+    from msckf_stereo_c_torch.sim.render_torch import TorchRenderer
+
+    t_start = time.time()
+    dev = torch.device("cuda")
+    traj = make_circle_trajectory(duration=6.0, omega=2.0 * np.pi / 8.0, roll_amp=0.25, t_static=1.5, t_ramp=1.0)
+    fidx = np.arange(0, traj.t.shape[0], 10)
+    fimu = synthesize_imu(traj, gyro_noise=5e-4, acc_noise=5e-3, seed=0)
+    f0, f1 = TorchRenderer(make_wall_landmarks(num=500, radius=8.0, seed=1), r_wall=8.0, device=dev).render_sequence(
+        traj, fidx)
+    fast = (traj, fimu, fidx, f0, f1)
+    bench = (scene.traj, scene.imu, scene.frame_idx, scene.img0, scene.img1)
+    bench_cfg = FrontendConfig(temporal_levels=1)
+    allowed = set()
+    out = {}
+    for name, sc in (("bench", bench), ("fast-motion", fast)):
+        cut = (sc[0], sc[1], sc[2][:SYNC_FRAMES], sc[3][:SYNC_FRAMES], sc[4][:SYNC_FRAMES])
+        o, sites = _path_run(f"{name} scene, bench front end", bench_cfg, mcfg, *cut, None, card)
+        allowed |= set(sites)
+        out[f"baseline {name}"] = o
+    print(f"[paths] sync sites of the bench front end: {sorted(allowed)}")
+
+    def fast_run(tl, bar):
+        t0 = time.time()
+        o, _ = _path_run(f"fast-motion, temporal_levels={tl}", FrontendConfig(temporal_levels=tl), mcfg, *fast,
+                         allowed, card)
+        o["run_seconds"] = time.time() - t0
+        out[f"fast-motion tl{tl}"] = o
+        check(o["min_tracks_last20"] > 15, f"[paths] fast-motion tl{tl}: min tracks {o['min_tracks_last20']} <= 15")
+        check(o["ate_rmse_m"] < bar, f"[paths] fast-motion tl{tl}: ATE {o['ate_rmse_m']} m above the {bar} m bar")
+
+    for tl, bar in FAST_TLEVELS:
+        fast_run(tl, bar)
+
+    rejected = torch.zeros((), dtype=torch.int64, device=dev)
+    two_point = ransac.two_point_ransac
+
+    def counted(pts1, pts2, valid, *args, **kwargs):
+        mask = two_point(pts1, pts2, valid, *args, **kwargs)
+        rejected.add_(torch.sum(valid & ~mask))
+        return mask
+
+    ransac.two_point_ransac = counted
+    try:
+        o, _ = _path_run("reference tracker", FrontendConfig(**REFERENCE_TRACKER), mcfg, *bench, allowed, card)
+    finally:
+        ransac.two_point_ransac = two_point
+    o["ransac_rejections"] = int(rejected)  # both cameras, the sync-counted frames included
+    out["reference tracker"] = o
+    print(f"[paths] reference tracker: RANSAC rejected {o['ransac_rejections']} matches over the timed and the "
+          f"sync-counted runs ({o['frames_matching_above_published']} frames with after_matching > after_ransac)")
+    check(o["ate_rmse_m"] < 0.13, f"[paths] reference tracker: ATE {o['ate_rmse_m']} m above 0.13 m")
+    check(o["ransac_rejections"] > 0, "[paths] reference tracker: RANSAC rejected no match")
+
+    cut = tuple(x[:PATH_FRAMES] for x in bench[2:])
+    for label, kw in BENCH_PATHS.items():
+        o, _ = _path_run(label, FrontendConfig(**{"temporal_levels": 1, **kw}), mcfg, *bench[:2], *cut, allowed,
+                            card)
+        out[label] = o
+    check(out["gather LK"]["ate_rmse_m"] < 0.13, f"[paths] gather LK: ATE {out['gather LK']['ate_rmse_m']} m")
+
+    out["kernel_rows"] = pattern_rows(scene, bench_cfg)
+    # The last depth costs about what the first did.
+    spent, need = time.time() - t_start, out[f"fast-motion tl{FAST_TLEVELS[0][0]}"]["run_seconds"]
+    if spent + need <= PATHS_SECONDS:
+        fast_run(*FAST_LAST)
+    else:
+        out[f"fast-motion tl{FAST_LAST[0]}"] = f"not run: {spent:.1f} s spent + {need:.1f} s > {PATHS_SECONDS} s"
+        print(f"[paths] fast-motion, temporal_levels={FAST_LAST[0]}: not run ({spent:.1f} s spent, about "
+              f"{need:.1f} s more would pass the phase's {PATHS_SECONDS:.0f} s)")
     return out
 
 
@@ -1851,6 +2147,7 @@ def main(argv=None) -> int:
     batch_out = timed("batch sweep", phase_batch_sweep, scene, head_state, fcfg, mcfg, card, args.out)
     entry_out = timed("entry point", phase_entry_point, card)
     euroc_out = timed("euroc", phase_euroc, scene, card)
+    paths_out = timed("frontend paths", phase_frontend_paths, scene, mcfg, card)
     stress_out = timed("stress path", phase_stress, card)
     stress_lanes_out = timed("stress lanes", phase_stress_lanes, card)
 
@@ -1886,6 +2183,7 @@ def main(argv=None) -> int:
                    "main_path": main_out, "mode_sweep": sweep_out, "methods": methods_out, "profile": prof_out,
                    "stages": stage_out, "stress_lanes": stress_lanes_out,
                    "distinct_lanes": lanes_out, "batch_sweep": batch_out, "entry_point": entry_out, "euroc": euroc_out,
+                   "frontend_paths": paths_out,
                    "stress_path": stress_out, "phase_seconds": phase_seconds, "seconds": time.time() - t_start},
                   f, indent=1)
     print(f"[done] {time.time() - t_start:.1f} s")

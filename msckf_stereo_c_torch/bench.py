@@ -18,9 +18,9 @@ and on stderr the card's name and power limit, B, the frame count, lane
 Knobs are bench.py's environment variables, read the same way:
 ``BENCH_BATCH`` (16), ``BENCH_FRAMES`` (100), ``BENCH_REPS`` (3),
 ``BENCH_KLT_NORM``, ``BENCH_NOISE_ADAPTIVE``, ``BENCH_NS_ITERS`` (10) and
-the rest of bench.py's; a value the port does not cover raises
-``NotImplementedError`` from the configuration's ``check_supported``,
-nothing falls back.  Runs on the CUDA card; ``main(device="cpu")`` runs on
+the rest of bench.py's; a filter setting the port does not cover raises
+``NotImplementedError`` from ``models/msckf.py:check_supported``, nothing
+falls back.  Runs on the CUDA card; ``main(device="cpu")`` runs on
 the CPU.
 """
 from __future__ import annotations
@@ -37,7 +37,6 @@ import torch
 
 from .config import EUROC_CALIB, FilterConfig, FrontendConfig, resolve_device
 from .io.tum import evaluate_ate
-from .models import frontend as _frontend
 from .models import msckf as _msckf
 from .models.frontend import make_frontend_params
 from .models.msckf import make_params
@@ -78,8 +77,6 @@ def bench_configs(env: Mapping[str, str] = os.environ):
     method = env.get("BENCH_METHOD", "schur")
     if env.get("BENCH_UNROLL", "1") != "1":
         raise NotImplementedError("BENCH_UNROLL unrolls bench.py's lax.scan; the port steps frames in Python")
-    W, H = EUROC_CALIB.cam0.resolution
-    _frontend.check_supported(fcfg, (H, W))
     _msckf.check_supported(mcfg, method)
     return fcfg, mcfg, method
 

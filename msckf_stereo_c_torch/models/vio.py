@@ -22,7 +22,6 @@ import torch
 from ..config import FilterConfig, FrontendConfig, StereoCalib, matmul_precision_scope, resolve_device
 from ..utils.lanes import add_lane_axis, drop_lane_axis, map_tree
 from ..utils.quaternion import jpl_to_rot
-from . import frontend as _frontend
 from . import msckf as _msckf
 from .frontend import (
     FrameOutput,
@@ -97,10 +96,13 @@ def _run_frontend(state: VioState, img0, img1, time, imu: ImuBatch, fparams, fcf
     dt = torch.where(is_first, 0.0, time - state.prev_time)
 
     # The filter's velocity (world frame) rotated into cam0 seeds the
-    # translation-aware temporal prediction.
-    R_wi = jpl_to_rot(state.filt.imu.q)
-    v_i = (R_wi @ state.filt.imu.v[..., None])[..., 0]
-    cam_vel = v_i.to(idtype) @ fparams.R_imu_cam0.T
+    # translation-aware temporal prediction; without translation_seed the
+    # tracker predicts from rotation only.
+    cam_vel = None
+    if fcfg.translation_seed:
+        R_wi = jpl_to_rot(state.filt.imu.q)
+        v_i = (R_wi @ state.filt.imu.v[..., None])[..., 0]
+        cam_vel = v_i.to(idtype) @ fparams.R_imu_cam0.T
 
     tracker, out = batched_frontend_step(
         state.tracker, state.pyr0_prev, pyr0, pyr1, mean_gyro.to(idtype), dt.to(idtype),
@@ -283,7 +285,6 @@ def run_vio_sequence(
         distortion_model1=calib.cam1.distortion_model,
     )
     H, W = images0.shape[1:]
-    _frontend.check_supported(fcfg, (H, W))
     _msckf.check_supported(mcfg, method)
     fparams = make_frontend_params(calib, image_dtype, device)
     mparams = make_params(mcfg, calib, filter_dtype, device)

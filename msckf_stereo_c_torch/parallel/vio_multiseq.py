@@ -14,7 +14,6 @@ from typing import Tuple
 import torch
 
 from ..config import FilterConfig, FrontendConfig, StereoCalib, resolve_device
-from ..models import frontend as _frontend
 from ..models import msckf as _msckf
 from ..models.frontend import FrontendParams
 from ..models.msckf import MsckfParams
@@ -86,8 +85,6 @@ def run_vio_batch(
     cross-sequence ``total_tracks`` and ``max_online_reset_count`` of
     ``make_sharded_vio_runner``."""
     device = resolve_device(device)
-    H, W = imgs0.shape[-2:]
-    _frontend.check_supported(fcfg, (H, W))
     _msckf.check_supported(mcfg, method)
     idtype = states.tracker.pts0.dtype
     fdtype = states.filt.P.dtype

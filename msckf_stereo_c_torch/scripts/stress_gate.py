@@ -58,7 +58,7 @@ def stress_knobs(env: Mapping[str, str] = os.environ, argv=()) -> StressKnobs:
     if env.get("STRESS_REFINE", "0") == "1" or "--refine" in argv:
         raise NotImplementedError(
             "STRESS_REFINE: the keyframe-BA refinement tier (parallel/refine.py) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)"
+            "(ROADMAP.md, Queue 1 item 1)"
         )
     mcfg = FilterConfig(
         ns_iters=int(env.get("STRESS_NS_ITERS", "10")),

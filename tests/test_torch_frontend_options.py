@@ -2,7 +2,11 @@
 package's ``vio_step``: the reference's own front end (``pyramid_levels=3``
 and the raw-pixel FAST threshold 10 with ``presmooth=False``, what
 ``load_frontend_config`` gives a YAML with ``fast_threshold >= 10`` and no
-``presmooth`` key), and ``cand_level1=False`` with ``cand_budget=0``.
+``presmooth`` key), ``cand_level1=False`` with ``cand_budget=0``, the
+reference's own tracker (four pyramid levels for temporal and stereo LK,
+rotation-only prediction, no template carry, anchor or left-right check,
+RANSAC on, with the JAX package's ``jax.random`` draws passed to the port's
+RANSAC), ``translation_seed=False`` and ``klt_impl='gather'``.
 
 The setup and the tolerances are tests/test_torch_vio.py's (bench scene,
 image float32, filter float64, Schur method with Newton-Schulz solves, the
@@ -12,7 +16,9 @@ but both packages step from the initial state, so the first frame matches
 new candidates only (the coarse walk, the level-1 pass and the candidate
 budget all act on it).  After three frames the last one comes again with
 its time and an empty IMU batch (dt 0), as a padded frame of the batch app
-does: both give the same finite pose."""
+does: both give the same finite pose.  The port's default front end steps
+beside each option from the same state, and the option must change what the
+port computes on some frame."""
 import dataclasses
 
 import jax
@@ -26,6 +32,7 @@ import msckf_stereo_c_tpu.ops.klt_corr as jkc
 from msckf_stereo_c_torch import config as tconfig
 from msckf_stereo_c_torch import convert
 from msckf_stereo_c_torch.models import vio as tvio
+from msckf_stereo_c_torch.ops import ransac as transac
 from msckf_stereo_c_tpu.models.frontend import make_frontend_params
 from msckf_stereo_c_tpu.models.msckf import make_params
 from msckf_stereo_c_tpu.models.propagation import ImuBatch
@@ -41,6 +48,15 @@ UV_TOL = 5e-2 / jconfig.EUROC_CALIB.cam0.intrinsics[0]
 OPTIONS = {
     "reference_frontend": dict(pyramid_levels=3, presmooth=False, fast_threshold=10),
     "no_level1_no_budget": dict(cand_level1=False, cand_budget=0),
+    # The reference's own tracker: four levels everywhere, rotation-only
+    # prediction, no template carry, anchor or left-right check, RANSAC on.
+    "reference_tracker": dict(
+        pyramid_levels=4, temporal_levels=4, stereo_levels=4, tmpl_carry=False, anchor_refine=False,
+        translation_seed=False, stereo_lr_threshold=0.0, presmooth=False, fast_threshold=10, cand_budget=0,
+        ransac_enabled=True,
+    ),
+    "no_translation_seed": dict(translation_seed=False),
+    "gather_klt": dict(klt_impl="gather"),
 }
 
 
@@ -62,9 +78,22 @@ def _imu_batch(traj, imu, i, L, empty=False):
     )
 
 
+def _jax_ransac_draws(next_fid, camera, n=transac.NUM_HYPOTHESES):
+    """The draws JAX's front end makes: fold_in(PRNGKey(17), next_fid), for
+    camera 1 folded once more with 1, split in two, randint each."""
+    rows = []
+    for nf in next_fid.tolist():
+        key = jax.random.fold_in(jax.random.PRNGKey(17), nf)
+        if camera == 1:
+            key = jax.random.fold_in(key, 1)
+        rows.append([np.array(jax.random.randint(k, (n,), 0, 1 << 30)) for k in jax.random.split(key)])
+    return tuple(torch.as_tensor(np.stack([r[j] for r in rows]), dtype=torch.int64) for j in (0, 1))
+
+
 @pytest.mark.parametrize("name", list(OPTIONS))
 def test_option_matches_jax_from_first_frame(frames, monkeypatch, name):
     monkeypatch.setattr(jkc, "_LOOP_MODE", "interpret")
+    monkeypatch.setattr(transac, "ransac_draws", _jax_ransac_draws)
     traj, imu, img0, img1 = frames
     kw = dict(max_features=48, **OPTIONS[name])
     fcfg, mcfg = jconfig.FrontendConfig(**kw), jconfig.FilterConfig(**MKW)
@@ -80,11 +109,7 @@ def test_option_matches_jax_from_first_frame(frames, monkeypatch, name):
     step = jax.jit(lambda s, i0, i1, t, b: vio_step(s, i0, i1, t, b, fparams, mparams, fcfg, mcfg, "schur"))
 
     default = dataclasses.replace(tfcfg, **{k: getattr(tconfig.FrontendConfig(), k) for k in OPTIONS[name]})
-    _, (_, dout) = tvio.vio_step(
-        tstate, torch.as_tensor(img0[0]), torch.as_tensor(img1[0]), torch.as_tensor(traj.t[IDX[0]]),
-        tvio.ImuBatch(**{n: torch.as_tensor(v) for n, v in _imu_batch(traj, imu, IDX[0], L).items()}),
-        tfp, tmp, default, tmcfg, "schur",
-    )
+    dstate, differs = tstate, False
 
     for k, empty in ((0, False), (1, False), (2, False), (2, True)):
         b = _imu_batch(traj, imu, IDX[k], L, empty)
@@ -97,6 +122,12 @@ def test_option_matches_jax_from_first_frame(frames, monkeypatch, name):
             tstate, torch.as_tensor(img0[k]), torch.as_tensor(img1[k]), torch.as_tensor(t),
             tvio.ImuBatch(**{n: torch.as_tensor(v) for n, v in b.items()}), tfp, tmp, tfcfg, tmcfg, "schur",
         )
+        dstate, (_, dout) = tvio.vio_step(
+            dstate, torch.as_tensor(img0[k]), torch.as_tensor(img1[k]), torch.as_tensor(t),
+            tvio.ImuBatch(**{n: torch.as_tensor(v) for n, v in b.items()}), tfp, tmp, default, tmcfg, "schur",
+        )
+        differs |= not (np.array_equal(tout.valid.numpy(), dout.valid.numpy())
+                        and np.allclose(tout.uv.numpy(), dout.uv.numpy(), rtol=0, atol=1e-9))
         valid = np.asarray(jout.valid)
         np.testing.assert_array_equal(tout.fid.numpy(), np.asarray(jout.fid))
         np.testing.assert_array_equal(tout.valid.numpy(), valid)
@@ -107,8 +138,8 @@ def test_option_matches_jax_from_first_frame(frames, monkeypatch, name):
         for field in ("after_tracking", "after_matching", "anchor_accepted", "after_ransac"):
             assert int(getattr(tout, field)) == int(getattr(jout, field)), field
         if k == 0:
-            # The options change what the first frame matches.
             assert len(tstate.pyr0_prev) == tfcfg.pyramid_levels
             assert int(jout.after_ransac) > 10
-            assert not (np.array_equal(tout.valid.numpy(), dout.valid.numpy())
-                        and np.allclose(tout.uv.numpy(), dout.uv.numpy(), rtol=0, atol=1e-9)), name
+    # The option changes what the port computes (the default front end
+    # stepped beside it from the same state).
+    assert differs, name

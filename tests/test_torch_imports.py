@@ -110,3 +110,18 @@ def test_port_imports_no_yaml_cv2_or_pil():
         env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"} | {"PYTHONPATH": ROOT},
     )
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+FRONTEND_PATH_MODULES = {
+    "msckf_stereo_c_torch.ops.klt", "msckf_stereo_c_torch.ops.ransac",
+    "msckf_stereo_c_torch.scripts.stress_debug",
+}
+
+
+def test_frontend_path_modules_are_covered():
+    """The gather LK, the two-point RANSAC and the stress diagnosis script
+    are among the modules imported without JAX and scanned for its names
+    above."""
+    assert FRONTEND_PATH_MODULES <= set(_port_modules())
+    paths = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {m.replace(".", "/") + ".py" for m in FRONTEND_PATH_MODULES} <= paths

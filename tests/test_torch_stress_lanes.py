@@ -120,9 +120,9 @@ def test_stress_knobs_match_the_jax_script(monkeypatch, capsys, env):
 
 
 def test_stress_refine_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         tgate.stress_knobs({"STRESS_REFINE": "1"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         tgate.stress_knobs({}, argv=["--refine"])
 
 

@@ -151,8 +151,28 @@ def test_precision_scope():
                dict(stereo_lr_threshold=0.0), dict(temporal_levels=2), dict(tmpl_carry=False)]
 )
 def test_unported_frontend_options_raise(option):
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        tfrontend.check_supported(tconfig.FrontendConfig(**option), (480, 752))
+    """The options the port once rejected now run: one first and one
+    tracking frame of ``vio_step`` on a small image give finite poses.  An
+    unknown ``klt_impl`` raises ``ValueError``, as in JAX; nothing else
+    does."""
+    fcfg = tconfig.FrontendConfig(max_features=16, **option)
+    mcfg = tconfig.FilterConfig(max_cam_state_size=3, max_tracks=16, max_imu_per_frame=4)
+    state = tvio.init_vio_state(fcfg, mcfg, tconfig.EUROC_CALIB, (64, 96), device="cpu")
+    fparams = tfrontend.make_frontend_params(tconfig.EUROC_CALIB)
+    mparams = tmsckf.make_params(mcfg, tconfig.EUROC_CALIB, torch.float64)
+    rng = np.random.default_rng(0)
+    img = torch.as_tensor(rng.uniform(0.0, 255.0, (64, 96)), dtype=torch.float32)
+    f64 = torch.float64
+    imu = tvio.ImuBatch(time=torch.arange(1, 5, dtype=f64) * 0.01, gyro=torch.zeros(4, 3, dtype=f64),
+                        acc=torch.tensor([[0.0, 0.0, 9.81]] * 4, dtype=f64), valid=torch.ones(4, dtype=torch.bool))
+    for t in (0.05, 0.1):
+        state, (pose, _) = tvio.vio_step(state, img, img, torch.tensor(t, dtype=f64), imu, fparams, mparams,
+                                         fcfg, mcfg, "schur")
+        assert torch.isfinite(pose.p).all()
+    if "klt_impl" in option:
+        with pytest.raises(ValueError, match="unknown klt_impl"):
+            tvio.vio_step(state, img, img, torch.tensor(0.15, dtype=f64), imu, fparams, mparams,
+                          dataclasses.replace(fcfg, klt_impl="matmul"), mcfg, "schur")
 
 
 def test_entry_points_need_a_device_or_cuda(monkeypatch):
