@@ -91,7 +91,21 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ATEs within 2e-4 m, in float32 (the stress script's dtype, whose batched
    products round by batch shape; over STRESS_LANE_F32_SECONDS) the ATE
    gap recorded;
-16. the card's name and power limit, the ``{"kernels": [...]}`` line, then
+16. backend: the refinement back end on the card in float64
+   (``phase_backend``): (a) the main path's VioResult through
+   ``parallel/refine.py:build_ba_problem`` (keyframes every 5 frames) and
+   ``refine_trajectory(iters=8)``, held to the same call on CPU tensors
+   (BA_CARD_TOL), costs falling, keyframe ATE before and after, ms a
+   Gauss-Newton step, and one synthetic problem at the 40 s gate's size
+   (BA_GATE_SIZE) timed; (b) ``STRESS_REFINE``'s tier on the stress
+   path's run (``scripts/stress_gate.py:refine_stats``); (c) the
+   multi-session gate at MS_SECONDS with its sessions as two lanes of one
+   run, launch counts zeroed just before and read just after (exact per
+   batched frame), tests/test_multisession.py's bars, wall time split; (d)
+   the sharded BA and pose graph over ``gloo`` in DIST_WORLD processes on
+   the one card (CUDA tensors), each rank equal to the one-process solve
+   within DIST_TOL;
+17. the card's name and power limit, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Details go to ``<out>/chip_smoke.json``.  The script imports nothing of JAX
@@ -152,6 +166,18 @@ STRESS_LANE_F32_SECONDS = 3.0  # its length in float32 (61 stereo frames)
 # Lanes of the batch sweep: bench.py's B=16 and powers of four around it,
 # up to where the card, not the host, sets the batched frame's time.
 SWEEP_BATCHES = (1, 4, 16, 64, 256, 1024)
+# The back end (phase_backend).  Card against CPU for the main path's BA:
+# costs within BA_CARD_TOL relative, positions and landmarks within
+# BA_CARD_TOL m; the distributed ranks against the one-process solve on the
+# card: tests/test_ba.py's and tests/test_posegraph.py's tolerances for the
+# sharded forms (costs rtol 1e-6; BA poses 1e-9 m, pose-graph poses 1e-8),
+# landmarks within 1e-8 m.
+BA_CARD_TOL = 1e-6
+BA_GATE_SIZE = (160, 400)  # keyframes x landmarks of the 40 s multi-session gate's BA problems
+MS_SECONDS = 12.0  # the multi-session gate's sessions (tests/test_multisession.py:136)
+MS_CHUNK = 48
+DIST_WORLD = 2
+DIST_TOL = dict(costs_rtol=1e-6, ba_poses_m=1e-9, landmarks_m=1e-8, graph_poses_m=1e-8)
 # The [frontend-paths] phase (ported in slice 8): the fast-motion scene
 # (tests/test_fast_motion.py) at each temporal LK depth with its ATE bar,
 # the reference's own tracker over the FRAMES bench frames, and the bench
@@ -785,7 +811,7 @@ def phase_main_path(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
     want = launches_per_frame(fcfg)
     check(counts == {k: v * T for k, v in want.items()},
           f"main path launches {counts}, expected per frame {want}")
-    return out
+    return out, res
 
 
 def count_syncs(fn):
@@ -1022,7 +1048,7 @@ def phase_stress(card):
           f"(torch sync debug mode, the stage-timed run), by call site:")
     for site, per_frame in list(out["sync_sites"].items())[:4]:
         print(f"[stress]   {per_frame:.2f}/frame at {site}")
-    return out
+    return out, gate
 
 
 def phase_methods(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
@@ -2091,6 +2117,276 @@ def phase_frontend_paths(scene, mcfg, card):
     return out
 
 
+def _synthetic_ba(F, L, seed=0):
+    """A keyframe BA problem at the gate's size: F keyframes on a 3 m circle
+    (two turns) looking out at the 7 m room wall, L wall landmarks, stereo
+    observations with 1e-3 noise where both cameras see the landmark within
+    the field of view, poses (but the first) and landmarks perturbed by 1-2
+    cm.  float64 on the card."""
+    import numpy as np
+    import torch
+
+    from msckf_stereo_c_torch.config import EUROC_CALIB
+    from msckf_stereo_c_torch.parallel.ba import BAProblem
+    from msckf_stereo_c_torch.utils.lie import so3_exp
+    from msckf_stereo_c_torch.utils.quaternion import rot_to_jpl
+
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0.0, 4.0 * np.pi, F, endpoint=False)
+    c, s, z, o = np.cos(th), np.sin(th), np.zeros(F), np.ones(F)
+    R = np.stack([-s, c, z, z, z, o, c, s, z], 1).reshape(F, 3, 3)  # rows: cam x, y, z (outward) in world
+    p = np.stack([3.0 * c, 3.0 * s, 0.3 * np.sin(2.0 * th)], 1)
+    a = rng.uniform(0.0, 2.0 * np.pi, L)
+    lms = np.stack([7.0 * np.cos(a), 7.0 * np.sin(a), rng.uniform(-2.0, 2.0, L)], 1)
+    T01 = EUROC_CALIB.T_cam0_cam1_mat()
+    p_c0 = np.einsum("fij,lfj->lfi", R, lms[:, None] - p[None])
+    p_c1 = p_c0 @ T01[:3, :3].T + T01[:3, 3]
+    uv0 = p_c0[..., :2] / p_c0[..., 2:]
+    uv1 = p_c1[..., :2] / p_c1[..., 2:]
+    mask = ((p_c0[..., 2] > 0.3) & (p_c1[..., 2] > 0.3) & (np.abs(uv0) < [0.8, 0.5]).all(-1)
+            & (np.abs(uv1) < [0.8, 0.5]).all(-1))
+    obs = (np.concatenate([uv0, uv1], -1) + rng.normal(0.0, 1e-3, (L, F, 4))) * mask[..., None]
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float64, device="cuda")
+
+    dth, dp = rng.normal(0.0, 0.01, (F, 3)), rng.normal(0.0, 0.01, (F, 3))
+    dth[0] = dp[0] = 0.0
+    q = rot_to_jpl(so3_exp(t(dth)) @ t(R))
+    return BAProblem(q, t(p + dp), t(lms + rng.normal(0.0, 0.02, (L, 3))), t(obs),
+                     torch.as_tensor(mask, device="cuda"), t(T01[:3, :3]), t(T01[:3, 3]))
+
+
+def _timed_refine(prob, iters):
+    """(refined, costs, ms a Gauss-Newton step) of ``refine_trajectory`` on
+    the card, after a one-step warm-up at the same shapes."""
+    import torch
+
+    from msckf_stereo_c_torch.parallel.refine import refine_trajectory
+
+    refine_trajectory(prob, iters=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined, costs = refine_trajectory(prob, iters=iters)
+    torch.cuda.synchronize()
+    return refined, costs, (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _dist_rank(rank, world, port, in_path, out_dir):
+    """One rank of the distributed phase: the sharded BA and pose graph over
+    ``gloo`` on CUDA tensors of the one card; results (moved to the host)
+    or the error saved for the parent."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from msckf_stereo_c_torch.parallel import ba, multisession, posegraph, refine
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+        try:
+            data = torch.load(in_path)
+            prob = ba.BAProblem(**{k: v.cuda() for k, v in data["ba"].items()})
+            graph = posegraph.PoseGraph(**{k: v.cuda() for k, v in data["graph"].items()})
+            t0 = time.perf_counter()
+            blk, costs = ba.make_distributed_ba(iters=8)(ba.shard_ba_problem(prob, world, rank))
+            full, full_costs = refine.refine_trajectory(prob, iters=8, group=dist.group.WORLD)
+            pg, pg_costs = posegraph.make_distributed_pose_graph(iters=12)(
+                posegraph.shard_pose_graph(graph, world, rank))
+            joint, joint_costs = multisession.optimize_joint(graph, group=dist.group.WORLD, iters=12)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            on_card = all(x.is_cuda for x in (blk.landmarks, costs, full.landmarks, pg.p, joint.p))
+            torch.save(dict(on_card=on_card, seconds=secs, ba_q=blk.cam_q.cpu(), ba_p=blk.cam_p.cpu(),
+                            ba_landmarks=blk.landmarks.cpu(), ba_costs=costs.cpu(),
+                            refine_landmarks=full.landmarks.cpu(), refine_costs=full_costs.cpu(),
+                            pg_q=pg.q.cpu(), pg_p=pg.p.cpu(), pg_costs=pg_costs.cpu(), joint_p=joint.p.cpu(),
+                            joint_costs=joint_costs.cpu()),
+                       os.path.join(out_dir, f"rank{rank}.pt"))
+        finally:
+            dist.destroy_process_group()
+    except Exception as e:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(f"{type(e).__name__}: {e}")
+        raise
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def phase_backend(scene, main_res, stress_run, card, out_dir):
+    """The refinement back end on the card in float64: (a) BA from the main
+    path's run, against the CPU, and at the gate's size; (b) STRESS_REFINE's
+    tier on the stress path's run; (c) the multi-session gate at MS_SECONDS
+    with its sessions as two lanes; (d) the sharded solvers over gloo in
+    DIST_WORLD processes on the card."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from msckf_stereo_c_torch.config import FrontendConfig
+    from msckf_stereo_c_torch.io.tum import evaluate_ate
+    from msckf_stereo_c_torch.ops import _cuda
+    from msckf_stereo_c_torch.parallel.ba import ba_gauss_newton
+    from msckf_stereo_c_torch.parallel.posegraph import PoseGraph, odometry_edges, optimize_pose_graph
+    from msckf_stereo_c_torch.parallel.refine import build_ba_problem, problem_to_body_poses, refine_trajectory
+    from msckf_stereo_c_torch.scripts import multisession_gate, stress_gate
+    from msckf_stereo_c_torch.utils.quaternion import rot_to_jpl
+
+    out = {}
+    # (a) BA from the main path's run: card against CPU, costs falling.
+    res = main_res
+    vio = (res.times, res.quats_xyzw, res.positions, res.fid, res.uv, res.valid)
+    prob = build_ba_problem(*vio, keyframe_stride=5, device="cuda")
+    check(prob is not None, "backend: the main path's run gave no BA problem")
+    refined, costs, ms_step = _timed_refine(prob, 8)
+    prob_cpu = build_ba_problem(*vio, keyframe_stride=5, device="cpu")
+    refined_cpu, costs_cpu = refine_trajectory(prob_cpu, iters=8)
+    costs, costs_cpu = costs.cpu().numpy(), costs_cpu.numpy()
+    cost_gap = float(np.max(np.abs(costs - costs_cpu) / np.abs(costs_cpu)))
+    pos_gap = float(torch.max(torch.abs(refined.cam_p.cpu() - refined_cpu.cam_p)))
+    lm_gap = float(torch.max(torch.abs(refined.landmarks.cpu() - refined_cpu.landmarks)))
+    F, L = prob.cam_q.shape[0], prob.landmarks.shape[0]
+    kf = np.arange(0, len(res.times), 5)[:F]
+    gt = scene.traj.p[scene.frame_idx[kf]]
+    ate_before = float(evaluate_ate(res.times[kf], problem_to_body_poses(prob), res.times[kf], gt).rmse)
+    ate_after = float(evaluate_ate(res.times[kf], problem_to_body_poses(refined), res.times[kf], gt).rmse)
+    synth = _synthetic_ba(*BA_GATE_SIZE)
+    s_ref, s_costs, s_ms = _timed_refine(synth, 8)
+    s_costs = s_costs.cpu().numpy()
+    s_obs = int(synth.mask.sum())
+    out["ba_main"] = dict(keyframes=F, landmarks=L, observations=int(prob.mask.sum()), costs=costs.tolist(),
+                          costs_cpu=costs_cpu.tolist(), cost_gap_rel=cost_gap, position_gap_m=pos_gap,
+                          landmark_gap_m=lm_gap, ms_per_step=ms_step, ate_kf_before_m=ate_before,
+                          ate_kf_after_m=ate_after)
+    out["ba_gate_size"] = dict(keyframes=BA_GATE_SIZE[0], landmarks=BA_GATE_SIZE[1], observations=s_obs,
+                               costs=s_costs.tolist(), ms_per_step=s_ms)
+    print(f"[backend] (a) main path BA: {F} keyframes x {L} landmarks ({int(prob.mask.sum())} observations), "
+          f"cost {costs[0]:.6g} -> {costs[-1]:.6g}, {ms_step:.3f} ms a Gauss-Newton step on {card}; card vs CPU: "
+          f"costs {cost_gap:.2e} rel, positions {pos_gap:.2e} m, landmarks {lm_gap:.2e} m; "
+          f"keyframe ATE {ate_before:.5f} -> {ate_after:.5f} m")
+    print(f"[backend] (a) gate-size BA: {BA_GATE_SIZE[0]} keyframes x {BA_GATE_SIZE[1]} landmarks ({s_obs} "
+          f"observations), cost {s_costs[0]:.6g} -> {s_costs[-1]:.6g}, {s_ms:.3f} ms a Gauss-Newton step")
+    check(cost_gap <= BA_CARD_TOL and pos_gap <= BA_CARD_TOL and lm_gap <= BA_CARD_TOL,
+          f"backend: card BA differs from the CPU's (costs {cost_gap}, positions {pos_gap}, landmarks {lm_gap})")
+    check(costs[-1] < costs[0] and s_costs[-1] < s_costs[0], "backend: BA costs did not fall")
+    check(bool(np.isfinite(s_costs).all()) and bool(torch.isfinite(s_ref.cam_p).all()), "backend: non-finite BA")
+
+    # (b) STRESS_REFINE's tier on the stress path's run (the JAX script's keys).
+    t0 = time.perf_counter()
+    stats = stress_gate.refine_stats(stress_run, 5, 60, device="cuda")
+    torch.cuda.synchronize()
+    stats["seconds"] = time.perf_counter() - t0
+    out["stress_refine"] = stats
+    print(f"[backend] (b) STRESS_REFINE on the stress path's {stress_run.n_frames} frames: {stats}")
+    check("refine_keyframes" in stats, f"backend: the stress run gave no refine problem ({stats})")
+    check(np.isfinite(stats["ate_kf_after"]) and stats["refine_cost_drop"] > 1.0,
+          f"backend: STRESS_REFINE's BA did not lower its cost ({stats})")
+
+    # (c) The multi-session gate, its sessions as the two lanes of one run.
+    want = launches_per_frame(FrontendConfig())
+    _cuda.reset_launch_counts()
+    ms = multisession_gate.run_multisession(duration=MS_SECONDS, chunk=MS_CHUNK, cache=False, device="cuda")
+    counts = dict(_cuda.launch_counts)
+    T = len(np.arange(0, int(MS_SECONDS * 200.0) + 1, 10))
+    ms.update(frames=T, launches=counts)
+    out["multisession"] = ms
+    print(f"[backend] (c) multi-session gate, {MS_SECONDS:g} s sessions as 2 lanes x {T} frames: joint ATE prior "
+          f"{ms['joint_ate_prior']:.5f} m, global alignment {ms['joint_ate_global_align']:.5f} m, after the "
+          f"graph {ms['joint_ate_after_graph']:.5f} m; sessions {ms['ate_session_a']:.5f} / "
+          f"{ms['ate_session_b']:.5f} m; {ms['landmark_matches']} matches, {ms['inter_edges']} inter-session "
+          f"edges, {ms['graph_nodes']} nodes; wall {ms['wall_s']:.2f} s (sessions {ms['wall_sessions_s']:.2f}, "
+          f"alignment sweep {ms['wall_align_s']:.2f}, graph {ms['wall_graph_s']:.2f}); launches per batched "
+          f"frame { {k: v / T for k, v in counts.items()} }")
+    check(counts == {k: v * T for k, v in want.items()},
+          f"backend: multi-session launches {counts}, expected per batched frame {want}")
+    after = ms["joint_ate_after_graph"]
+    check(after < 0.5 * ms["joint_ate_prior"] and after < 0.13 and after <= ms["joint_ate_global_align"] + 0.02,
+          f"backend: multi-session bars missed ({ms})")
+
+    # (d) The sharded solvers over gloo in DIST_WORLD processes on the card:
+    # the main path's BA problem and a pose graph over its 60 frames (VIO
+    # poses; odometry edges at strides 1 and 5 measured from the truth).
+    q_gt = rot_to_jpl(torch.as_tensor(scene.traj.R_w_b[scene.frame_idx], dtype=torch.float64)).numpy()
+    p_gt = scene.traj.p[scene.frame_idx]
+    e1, e5 = odometry_edges(q_gt, p_gt, 1, 1e4), odometry_edges(q_gt, p_gt, 5, 1e2)
+    graph = PoseGraph(*(torch.as_tensor(x, device="cuda") for x in (
+        np.asarray(res.quats_xyzw, np.float64), np.asarray(res.positions, np.float64),
+        np.concatenate([e1[0], e5[0]]).astype(np.int64), np.concatenate([e1[1], e5[1]]).astype(np.int64),
+        np.concatenate([e1[2], e5[2]]), np.concatenate([e1[3], e5[3]]), np.concatenate([e1[4], e5[4]]))))
+    want_ba, want_ba_costs = ba_gauss_newton(prob, iters=8)
+    want_pg, want_pg_costs = optimize_pose_graph(graph, iters=12)
+    dist_dir = os.path.join(out_dir, "backend_dist")
+    os.makedirs(dist_dir, exist_ok=True)
+    for f in os.listdir(dist_dir):
+        os.remove(os.path.join(dist_dir, f))
+    in_path = os.path.join(dist_dir, "problems.pt")
+    torch.save(dict(ba={k: v.cpu() for k, v in prob._asdict().items()},
+                    graph={k: v.cpu() for k, v in graph._asdict().items()}), in_path)
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dist_rank, args=(r, DIST_WORLD, port, in_path, dist_dir)) for r in range(DIST_WORLD)]
+    for pr in procs:
+        pr.start()
+    try:
+        for pr in procs:
+            pr.join(timeout=300)
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.terminate()
+                pr.join(timeout=30)
+    wall = time.perf_counter() - t0
+    errors = {r: open(os.path.join(dist_dir, f"rank{r}.err")).read() for r in range(DIST_WORLD)
+              if os.path.exists(os.path.join(dist_dir, f"rank{r}.err"))}
+    check(not errors, f"backend: a gloo rank failed on CUDA tensors (no move to the CPU is made): {errors}")
+    check(all(pr.exitcode == 0 for pr in procs), f"backend: gloo ranks exited {[pr.exitcode for pr in procs]}")
+    Lb = -(-L // DIST_WORLD)
+    gaps = dict(costs_rel=0.0, ba_poses_m=0.0, landmarks_m=0.0, graph_poses_m=0.0)
+    ranks = []
+    for r in range(DIST_WORLD):
+        got = torch.load(os.path.join(dist_dir, f"rank{r}.pt"))
+        check(got["on_card"], f"backend: rank {r}'s results are not CUDA tensors")
+        s0, s1 = r * Lb, min((r + 1) * Lb, L)
+
+        def gap(a, b):
+            return float(torch.max(torch.abs(a - b.cpu()))) if a.numel() else 0.0
+
+        for c, w in ((got["ba_costs"], want_ba_costs), (got["refine_costs"], want_ba_costs),
+                     (got["pg_costs"], want_pg_costs), (got["joint_costs"], want_pg_costs)):
+            # Relative gaps, numerical zeros (under 1e-18) held absolutely.
+            w = w.cpu()
+            rel = torch.abs(c - w) / torch.clamp(torch.abs(w), min=1e-18 / DIST_TOL["costs_rtol"])
+            gaps["costs_rel"] = max(gaps["costs_rel"], float(torch.max(rel)))
+        gaps["ba_poses_m"] = max(gaps["ba_poses_m"], gap(got["ba_p"], want_ba.cam_p), gap(got["ba_q"], want_ba.cam_q))
+        gaps["landmarks_m"] = max(gaps["landmarks_m"], gap(got["ba_landmarks"][: s1 - s0], want_ba.landmarks[s0:s1]),
+                                  gap(got["refine_landmarks"], want_ba.landmarks))
+        gaps["graph_poses_m"] = max(gaps["graph_poses_m"], gap(got["pg_p"], want_pg.p), gap(got["pg_q"], want_pg.q),
+                                    gap(got["joint_p"], want_pg.p))
+        ranks.append(dict(rank=r, seconds=got["seconds"]))
+    out["distributed"] = dict(world=DIST_WORLD, backend="gloo", tensors="cuda", ba_landmarks=L,
+                              graph_nodes=int(graph.q.shape[0]), graph_edges=int(graph.edge_i.shape[0]),
+                              gaps=gaps, tolerance=DIST_TOL, wall_seconds=wall, ranks=ranks,
+                              ba_costs=want_ba_costs.tolist(), pose_graph_costs=want_pg_costs.tolist())
+    print(f"[backend] (d) {DIST_WORLD} gloo ranks on CUDA tensors of the one card ({wall:.2f} s with start-up; "
+          f"solves {[round(x['seconds'], 2) for x in ranks]} s): BA {L} landmarks sharded, pose graph "
+          f"{int(graph.q.shape[0])} nodes / {int(graph.edge_i.shape[0])} edges sharded; largest gaps to the "
+          f"one-process solve {gaps}")
+    check(gaps["costs_rel"] <= DIST_TOL["costs_rtol"] and gaps["ba_poses_m"] <= DIST_TOL["ba_poses_m"]
+          and gaps["landmarks_m"] <= DIST_TOL["landmarks_m"] and gaps["graph_poses_m"] <= DIST_TOL["graph_poses_m"],
+          f"backend: the gloo ranks differ from the one-process solve ({gaps}, tolerance {DIST_TOL})")
+    check(float(want_pg_costs[-1]) < float(want_pg_costs[0]), "backend: pose-graph cost did not fall")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke"),
@@ -2136,7 +2432,7 @@ def main(argv=None) -> int:
 
     rows = timed("kernels", phase_kernels, img0, img1, fcfg) + timed("kernels, stress inputs", phase_k3, fcfg)
     stack_rows = timed("kernels on a stack", phase_stack_kernels, img0, fcfg)
-    main_out = timed("main path", phase_main_path, traj, imu, frame_idx, img0, img1, fcfg, mcfg, card)
+    main_out, main_res = timed("main path", phase_main_path, traj, imu, frame_idx, img0, img1, fcfg, mcfg, card)
     sweep_out = timed("mode sweep", phase_mode_sweep, traj, imu, frame_idx, img0, img1, mcfg)
     methods_out = timed("methods", phase_methods, traj, imu, frame_idx, img0, img1, fcfg, mcfg, card)
     os.makedirs(args.out, exist_ok=True)
@@ -2148,8 +2444,9 @@ def main(argv=None) -> int:
     entry_out = timed("entry point", phase_entry_point, card)
     euroc_out = timed("euroc", phase_euroc, scene, card)
     paths_out = timed("frontend paths", phase_frontend_paths, scene, mcfg, card)
-    stress_out = timed("stress path", phase_stress, card)
+    stress_out, stress_gate = timed("stress path", phase_stress, card)
     stress_lanes_out = timed("stress lanes", phase_stress_lanes, card)
+    backend_out = timed("backend", phase_backend, scene, main_res, stress_gate, card, args.out)
 
     pick = {
         "lk_corr_align": next(r for r in rows if r["name"] == "lk_corr_align" and r["level"] == 0
@@ -2183,7 +2480,7 @@ def main(argv=None) -> int:
                    "main_path": main_out, "mode_sweep": sweep_out, "methods": methods_out, "profile": prof_out,
                    "stages": stage_out, "stress_lanes": stress_lanes_out,
                    "distinct_lanes": lanes_out, "batch_sweep": batch_out, "entry_point": entry_out, "euroc": euroc_out,
-                   "frontend_paths": paths_out,
+                   "frontend_paths": paths_out, "backend": backend_out,
                    "stress_path": stress_out, "phase_seconds": phase_seconds, "seconds": time.time() - t_start},
                   f, indent=1)
     print(f"[done] {time.time() - t_start:.1f} s")

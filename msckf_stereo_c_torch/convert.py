@@ -1,8 +1,9 @@
 """State carried across between the JAX package and the port.
 
 The port has no learned weights: its parameters are the calibration
-constants (``FrontendParams``, ``MsckfParams``) and the tracker and filter
-state (``VioState``).  Both packages use NamedTuples with the same class and
+constants (``FrontendParams``, ``MsckfParams``), the tracker and filter
+state (``VioState``) and the back end's problems (``BAProblem``,
+``PoseGraph``).  Both packages use NamedTuples with the same class and
 field names, so a state converts field by field: ``vio_state_from_numpy``
 takes the JAX package's structures as numpy trees (``jax.device_get`` of
 them) and builds the port's, and ``vio_state_to_numpy`` turns the port's
@@ -21,12 +22,15 @@ from .models.msckf import FrameFeatures, MsckfParams, PoseOutput
 from .models.propagation import ImuBatch
 from .models.state import CamStates, FilterState, ImuState, TrackMap
 from .models.vio import VioState
+from .parallel.ba import BAProblem
+from .parallel.posegraph import PoseGraph
 
 _CLASSES = {
     cls.__name__: cls
     for cls in (
         VioState, TrackerState, FilterState, ImuState, CamStates, TrackMap,
         FrontendParams, MsckfParams, ImuBatch, FrameFeatures, FrameOutput, PoseOutput,
+        BAProblem, PoseGraph,
     )
 }
 

@@ -20,7 +20,11 @@ STRESS_FAST_THR, STRESS_KLT_NORM, the photometric channels
 (STRESS_SENSOR_NOISE, STRESS_MOTION_BLUR, STRESS_VIGNETTE,
 STRESS_NOISE_READ, STRESS_NOISE_SHOT, STRESS_TEX_POOR, STRESS_BLOB_POOR),
 STRESS_PLATFORM (``cpu`` selects the CPU; the card otherwise) and
-STRESS_REFINE (the keyframe-BA refinement tier is not ported: raises).
+STRESS_REFINE=1 (or ``--refine``): the worst seed's run through the
+keyframe-BA refinement tier (``parallel/refine.py``, keyframes every
+STRESS_REFINE_STRIDE frames, at most STRESS_REFINE_KF of them, 8
+Gauss-Newton steps in float64 on the run's device), its keyframe ATE
+before and after added to the last line with the JAX script's keys.
 """
 from __future__ import annotations
 
@@ -47,19 +51,16 @@ class StressKnobs:
     mcfg: object  # FilterConfig
     events_kwargs: dict
     device: Optional[str]  # None = the CUDA card
+    refine: bool = False  # the keyframe-BA refinement tier on the worst seed
+    refine_stride: int = 5
+    refine_kf: int = 60
 
 
 def stress_knobs(env: Mapping[str, str] = os.environ, argv=()) -> StressKnobs:
     """The run the JAX script builds from ``env``: the same configurations,
-    seeds and photometric knobs.  Raises NotImplementedError for the
-    refinement tier (STRESS_REFINE=1 or ``--refine``)."""
+    seeds, photometric knobs and refinement tier."""
     from ..config import FilterConfig, FrontendConfig
 
-    if env.get("STRESS_REFINE", "0") == "1" or "--refine" in argv:
-        raise NotImplementedError(
-            "STRESS_REFINE: the keyframe-BA refinement tier (parallel/refine.py) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 1)"
-        )
     mcfg = FilterConfig(
         ns_iters=int(env.get("STRESS_NS_ITERS", "10")),
         matmul_precision=env.get("STRESS_FILTER_PRECISION", "tensorfloat32"),
@@ -104,7 +105,43 @@ def stress_knobs(env: Mapping[str, str] = os.environ, argv=()) -> StressKnobs:
         mcfg=mcfg,
         events_kwargs=events_kwargs,
         device="cpu" if env.get("STRESS_PLATFORM") == "cpu" else None,
+        refine=env.get("STRESS_REFINE", "0") == "1" or "--refine" in argv,
+        refine_stride=int(env.get("STRESS_REFINE_STRIDE", "5")),
+        refine_kf=int(env.get("STRESS_REFINE_KF", "60")),
     )
+
+
+def refine_stats(run, stride: int = 5, max_keyframes: int = 60, device=None) -> dict:
+    """The refinement tier on one stress run (a ``StressGateResult``): its
+    keyframe BA problem (``build_ba_problem``), 8 Gauss-Newton steps on
+    ``device`` (the CUDA card when None), and the keyframe ATE before and
+    after, both through the same Horn alignment (BA fixes the first
+    keyframe, so it can only reduce relative inconsistency).  The JAX
+    script's keys."""
+    from ..config import EUROC_CALIB
+    from ..io.tum import evaluate_ate
+    from ..parallel.refine import build_ba_problem, problem_to_body_poses, refine_trajectory
+
+    res = run.result
+    prob = build_ba_problem(res.times, res.quats_xyzw, res.positions, res.fid, res.uv, res.valid,
+                            calib=EUROC_CALIB, keyframe_stride=stride, max_keyframes=max_keyframes,
+                            device=device)
+    if prob is None:
+        return {"refine": "skipped (too few tracks/keyframes)"}
+    kf = np.arange(0, len(res.times), stride)[: prob.cam_q.shape[0]]
+    kf_t = res.times[kf]
+    gt_at_kf = run.gt_p[np.searchsorted(run.gt_t, kf_t).clip(0, len(run.gt_t) - 1)]
+    before = evaluate_ate(kf_t, problem_to_body_poses(prob), kf_t, gt_at_kf)
+    refined, costs = refine_trajectory(prob, iters=8)
+    after = evaluate_ate(kf_t, problem_to_body_poses(refined), kf_t, gt_at_kf)
+    costs = costs.cpu().numpy()
+    return {
+        "refine_keyframes": int(prob.cam_q.shape[0]),
+        "refine_landmarks": int(prob.landmarks.shape[0]),
+        "refine_cost_drop": float(costs[0] / max(float(costs[-1]), 1e-30)),
+        "ate_kf_before": float(before.rmse),
+        "ate_kf_after": float(after.rmse),
+    }
 
 
 def main(env: Mapping[str, str] = os.environ, argv=None) -> dict:
@@ -153,6 +190,8 @@ def main(env: Mapping[str, str] = os.environ, argv=None) -> dict:
         "frames_per_s": n * worst.n_frames / wall,
         "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
     }
+    if knobs.refine:
+        line.update(refine_stats(worst, knobs.refine_stride, knobs.refine_kf, device))
     print(json.dumps(line), flush=True)
     return line
 

@@ -29,7 +29,7 @@ from ..models.frontend import make_frontend_params
 from ..models.msckf import make_params
 from ..models.propagation import ImuBatch
 from ..models.runner import pack_imu_batches
-from ..models.vio import VioResult
+from ..models.vio import VioResult, VioState
 from ..parallel.vio_multiseq import batched_gravity_init, batched_init_vio_state, run_vio_batch
 from ..utils.lanes import lane
 from .render_torch import StressEvents, TorchRenderer, make_stress_events
@@ -59,6 +59,62 @@ class StressGateResult:
     result: VioResult
     gt_t: np.ndarray
     gt_p: np.ndarray
+
+
+def initial_lane_states(imus, fcfg, mcfg, calib, image_dtype, filter_dtype, device) -> VioState:
+    """One lane per IMU stream of ``imus``: the initial state, gravity and
+    bias set from each lane's first ``imu_init_samples`` samples."""
+    H, W = calib.cam0.resolution[1], calib.cam0.resolution[0]
+    states = batched_init_vio_state(fcfg, mcfg, calib, (H, W), len(imus), image_dtype, filter_dtype, device)
+    n0 = mcfg.imu_init_samples
+    return batched_gravity_init(
+        states, np.stack([m.gyro[:n0] for m in imus]), np.stack([m.acc[:n0] for m in imus])
+    )
+
+
+def step_rendered_lanes(states, trajs, renderers, events, imus, frame_idx, fcfg, mcfg, calib, image_dtype,
+                        filter_dtype, method, chunk, device):
+    """Step B lanes over the frames ``frame_idx`` of one frame clock in
+    chunks of ``chunk``: each chunk is rendered per lane on the device
+    (lane b: ``renderers[b]`` along ``trajs[b]`` under ``events[b]``), its
+    IMU packed from the lane's own stream ``imus[b]``, and stepped by
+    ``run_vio_batch`` from the states the chunk before left.  Returns
+    (states, poses, fronts): the states after the last frame and each
+    chunk's PoseOutput and FrameOutput as numpy trees (``lane_series``
+    joins a lane's)."""
+    B = len(trajs)
+    frame_t = trajs[0].t[frame_idx]
+    T = len(frame_idx)
+    fparams = make_frontend_params(calib, image_dtype, device)
+    mparams = make_params(mcfg, calib, filter_dtype, device)
+    poses, fronts = [], []
+    for s0 in range(0, T, chunk):
+        s1 = min(s0 + chunk, T)
+        prev = float(frame_t[s0 - 1]) if s0 > 0 else None
+        rendered = [r.render_sequence(tr, frame_idx[s0:s1], ev.slice(s0, s1), chunk=chunk)
+                    for r, tr, ev in zip(renderers, trajs, events)]
+        # One lane reads its frames as one shared stack, as a one-sequence
+        # run does; several lanes read a (B, T, H, W) stack.
+        img0 = torch.stack([x[0] for x in rendered]) if B > 1 else rendered[0][0]
+        img1 = torch.stack([x[1] for x in rendered]) if B > 1 else rendered[0][1]
+        del rendered
+        # Each lane packs its own IMU stream.
+        packed = [pack_imu_batches(m.t, m.gyro, m.acc, frame_t[s0:s1], mcfg.max_imu_per_frame,
+                                   prev_frame_t=prev) for m in imus]
+        imu = ImuBatch(*(torch.stack(x) for x in zip(*packed)))
+        states, pose, front, _ = run_vio_batch(
+            states, img0, img1, np.repeat(frame_t[None, s0:s1], B, axis=0), imu,
+            fparams, mparams, fcfg, mcfg, method=method, device=device,
+        )
+        del img0, img1
+        poses.append(to_numpy(pose))
+        fronts.append(to_numpy(front))
+    return states, poses, fronts
+
+
+def lane_series(parts, field: str, b: int) -> np.ndarray:
+    """Lane ``b``'s ``field`` over the chunks ``parts``, joined in time."""
+    return np.concatenate([getattr(p, field)[b] for p in parts], axis=0)
 
 
 def run_stress_gate(
@@ -168,56 +224,27 @@ def run_stress_lanes(
         distortion_model1=calib.cam1.distortion_model,
     )
     mcfg = mcfg or FilterConfig(ns_iters=10 if method == "schur" else 0)
-    H, W = calib.cam0.resolution[1], calib.cam0.resolution[0]
-    fparams = make_frontend_params(calib, image_dtype, device)
-    mparams = make_params(mcfg, calib, filter_dtype, device)
-    states = batched_init_vio_state(fcfg, mcfg, calib, (H, W), B, image_dtype, filter_dtype, device)
-    n0 = mcfg.imu_init_samples
-    states = batched_gravity_init(
-        states, np.stack([m.gyro[:n0] for m in imus]), np.stack([m.acc[:n0] for m in imus])
+    states = initial_lane_states(imus, fcfg, mcfg, calib, image_dtype, filter_dtype, device)
+    states, poses, fronts = step_rendered_lanes(
+        states, [traj] * B, renderers, evs, imus, frame_idx, fcfg, mcfg, calib, image_dtype, filter_dtype,
+        method, chunk, device,
     )
-
-    poses, fronts = [], []
-    for s0 in range(0, T, chunk):
-        s1 = min(s0 + chunk, T)
-        prev = float(frame_t[s0 - 1]) if s0 > 0 else None
-        rendered = [r.render_sequence(traj, frame_idx[s0:s1], ev.slice(s0, s1), chunk=chunk)
-                    for r, ev in zip(renderers, evs)]
-        # One lane reads its frames as one shared stack, as a one-sequence
-        # run does; several lanes read a (B, T, H, W) stack.
-        img0 = torch.stack([x[0] for x in rendered]) if B > 1 else rendered[0][0]
-        img1 = torch.stack([x[1] for x in rendered]) if B > 1 else rendered[0][1]
-        del rendered
-        # Each lane packs its own IMU stream.
-        packed = [pack_imu_batches(m.t, m.gyro, m.acc, frame_t[s0:s1], mcfg.max_imu_per_frame,
-                                   prev_frame_t=prev) for m in imus]
-        imu = ImuBatch(*(torch.stack(x) for x in zip(*packed)))
-        states, pose, front, _ = run_vio_batch(
-            states, img0, img1, np.repeat(frame_t[None, s0:s1], B, axis=0), imu,
-            fparams, mparams, fcfg, mcfg, method=method, device=device,
-        )
-        del img0, img1
-        poses.append(to_numpy(pose))
-        fronts.append(to_numpy(front))
-
-    def cat(parts, field, b):
-        return np.concatenate([getattr(p, field)[b] for p in parts], axis=0)
 
     gt_p = traj.p[frame_idx]
     out = []
     for b in range(B):
         full = VioResult(
-            times=cat(poses, "time", b),
-            positions=cat(poses, "p", b),
-            quats_xyzw=cat(poses, "q_xyzw", b),
-            pos_cov=cat(poses, "p_cov", b),
-            num_tracks=cat(poses, "num_tracks", b),
-            tracking={k: cat(fronts, k, b) for k in
+            times=lane_series(poses, "time", b),
+            positions=lane_series(poses, "p", b),
+            quats_xyzw=lane_series(poses, "q_xyzw", b),
+            pos_cov=lane_series(poses, "p_cov", b),
+            num_tracks=lane_series(poses, "num_tracks", b),
+            tracking={k: lane_series(fronts, k, b) for k in
                       ("before_tracking", "after_tracking", "after_matching", "after_ransac")},
             final_state=lane(states, b),
-            fid=cat(fronts, "fid", b),
-            uv=cat(fronts, "uv", b),
-            valid=cat(fronts, "valid", b),
+            fid=lane_series(fronts, "fid", b),
+            uv=lane_series(fronts, "uv", b),
+            valid=lane_series(fronts, "valid", b),
         )
         ate = evaluate_ate(full.times, full.positions, frame_t, gt_p)
         out.append(StressGateResult(

@@ -125,3 +125,20 @@ def test_frontend_path_modules_are_covered():
     assert FRONTEND_PATH_MODULES <= set(_port_modules())
     paths = {os.path.relpath(p, ROOT) for p in _sources()}
     assert {m.replace(".", "/") + ".py" for m in FRONTEND_PATH_MODULES} <= paths
+
+
+BACKEND_MODULES = {
+    "msckf_stereo_c_torch.parallel.collectives", "msckf_stereo_c_torch.parallel.ba",
+    "msckf_stereo_c_torch.parallel.posegraph", "msckf_stereo_c_torch.parallel.refine",
+    "msckf_stereo_c_torch.parallel.multisession", "msckf_stereo_c_torch.scripts.multisession_gate",
+}
+
+
+def test_backend_modules_are_covered():
+    """The refinement back end (BA, the pose graph, the VIO-to-BA glue, the
+    multi-session tier, their torch.distributed plumbing) and the
+    multi-session gate script are among the modules imported without JAX
+    and scanned for its names above."""
+    assert BACKEND_MODULES <= set(_port_modules())
+    paths = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {m.replace(".", "/") + ".py" for m in BACKEND_MODULES} <= paths

@@ -120,10 +120,17 @@ def test_stress_knobs_match_the_jax_script(monkeypatch, capsys, env):
 
 
 def test_stress_refine_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        tgate.stress_knobs({"STRESS_REFINE": "1"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        tgate.stress_knobs({}, argv=["--refine"])
+    """STRESS_REFINE=1 or ``--refine`` no longer raises: it builds the
+    refinement tier with the JAX script's defaults (keyframes every 5
+    frames, at most 60) and its STRESS_REFINE_STRIDE / STRESS_REFINE_KF
+    knobs; without it there is no tier.  (The tier itself runs in
+    tests/test_torch_refine.py.)"""
+    knobs = tgate.stress_knobs({"STRESS_REFINE": "1"})
+    assert (knobs.refine, knobs.refine_stride, knobs.refine_kf) == (True, 5, 60)
+    assert tgate.stress_knobs({}, argv=["--refine"]).refine
+    knobs = tgate.stress_knobs({"STRESS_REFINE": "1", "STRESS_REFINE_STRIDE": "3", "STRESS_REFINE_KF": "20"})
+    assert (knobs.refine_stride, knobs.refine_kf) == (3, 20)
+    assert not tgate.stress_knobs({}).refine and not tgate.stress_knobs({"STRESS_REFINE": "0"}).refine
 
 
 def test_stress_script_prints_seed_lines_and_the_gate_line(capsys):
