@@ -105,7 +105,18 @@ Phases, each of which fails the run (exit code 1) if it fails:
    the sharded BA and pose graph over ``gloo`` in DIST_WORLD processes on
    the one card (CUDA tensors), each rank equal to the one-process solve
    within DIST_TOL;
-17. the card's name and power limit, the ``{"kernels": [...]}`` line, then
+17. multiproc: the multi-process tier on the card (``phase_multiproc``):
+   (a) ``entry.dryrun_multichip(2)``, the bench configuration at 752x480,
+   2 lanes x 22 frames in one process and then as 2 ranks over ``gloo``
+   on the one card; (b) the ``vio`` workers (half resolution, 4 lanes over
+   2 ranks, 8 frames) and the ``ba`` workers in float64; (c) the ``bench``
+   workers, one lane a rank, timed against the one-process 2-lane chunk.
+   Every rank's launches exactly 7 / 4 / 1 per batched frame, each rank's
+   lanes against a one-process run of its own block (ids and validity on
+   the first 10 frames, positions within 2e-4 m), the all-reduced
+   ``total_tracks`` equal to the sum of the ranks' own totals, the BA
+   ranks within 1e-9 of the one-process solve;
+18. the card's name and power limit, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Details go to ``<out>/chip_smoke.json``.  The script imports nothing of JAX
@@ -140,7 +151,7 @@ FRAMES = 60  # main-path frames, 752x480 stereo (bench.py's scene)
 N_TAIL = 8  # last frames of the scene run again by the profile phase and the batch sweep
 SWEEP_FRAMES = 20  # bench frames per photometric mode in the mode sweep
 STRESS_SECONDS = 36.0  # the stress gate's short run (721 stereo frames)
-STRESS_STAGE_SECONDS = 12.0  # the stage-timed stress run (241 stereo frames)
+STRESS_STAGE_SECONDS = 3.0  # the stage-timed stress run (61 stereo frames; 12 s before the [multiproc] phase)
 STACK_LANES = 4  # images in the stack of the batched-kernel checks
 DISTINCT_FRAMES = 30  # frames of the distinct-lane run
 # The filter methods over the last METHOD_FRAMES bench frames, from the state
@@ -161,7 +172,7 @@ INTERNAL_KEYS = (
     "frontend_fid", "frontend_uv", "frontend_valid",
 )
 STRESS_LANE_SEEDS = (0, 1)  # robustness seeds of the stress-lane run
-STRESS_LANE_SECONDS = 6.0  # its length in float64 (121 stereo frames)
+STRESS_LANE_SECONDS = 4.0  # its length in float64 (81 stereo frames; 6 s before the [multiproc] phase)
 STRESS_LANE_F32_SECONDS = 3.0  # its length in float32 (61 stereo frames)
 # Lanes of the batch sweep: bench.py's B=16 and powers of four around it,
 # up to where the card, not the host, sets the batched frame's time.
@@ -2387,6 +2398,105 @@ def phase_backend(scene, main_res, stress_run, card, out_dir):
     return out
 
 
+MP_WORLD = 2  # ranks of the [multiproc] phase, over gloo on the one card
+MP_BENCH_REPS = 2  # timed chunks of the bench tier (the workers' MSCKF_BENCH_REPS default)
+
+
+def phase_multiproc(card):
+    """The multi-process tier on the card (``parallel/multiproc.py``): (a)
+    ``entry.dryrun_multichip(MP_WORLD)``, the bench configuration at
+    752x480 over MP_WORLD lanes x 22 frames in one process, then its
+    automatic 2-process tier (one lane a rank); (b) the ``vio`` workers
+    (half resolution, 4 lanes over MP_WORLD ranks, 8 frames) and the
+    ``ba`` workers in float64; (c) the ``bench`` workers, one lane a
+    rank, against the one-process MP_WORLD-lane chunk.  Every rank's
+    launches exact per batched frame, each rank's lanes against a
+    one-process run of its own block (ids and validity on the first 10
+    frames, positions within ``multiproc.LANE_TOL_M``), the all-reduced
+    ``total_tracks`` equal to the sum of the ranks' own totals; the BA
+    ranks hold themselves within 1e-9 of the one-process solve.  The
+    tiers' wall times include the ranks' start-up."""
+    import torch
+
+    from msckf_stereo_c_torch import entry
+    from msckf_stereo_c_torch.config import FrontendConfig
+    from msckf_stereo_c_torch.parallel import multiproc
+    from msckf_stereo_c_torch.scripts.bench_scaling import run_flagship_on
+
+    def per_frame(launches, frames):
+        return {k: v / frames for k, v in launches.items() if v}
+
+    def check_ranks(tag, reports, want, frames):
+        """Launches, per-lane agreement and the reduced total of every
+        rank of a tier; returns the largest position gap."""
+        check(len(reports) == MP_WORLD, f"multiproc: {tag}: {len(reports)} ranks reported")
+        total = sum(r["local_total_tracks"] for r in reports)
+        for r in reports:
+            check(r["launches"] == {k: v * frames for k, v in want.items()},
+                  f"multiproc: {tag} rank {r['process']} launched {r['launches']}, expected per batched frame "
+                  f"{want} over {frames} frames")
+            check(r["backend"] == "gloo" and r["device"].startswith("cuda"),
+                  f"multiproc: {tag} rank {r['process']} ran on {r['device']} over {r['backend']}")
+            g = r["gaps"]
+            check(g["ids_equal"] and g["max_position_gap_m"] <= multiproc.LANE_TOL_M,
+                  f"multiproc: {tag} rank {r['process']} differs from the one-process run of its block: {g}")
+            check(r["total_tracks"] == total,
+                  f"multiproc: {tag} all-reduced total_tracks {r['total_tracks']} != the ranks' sum {total}")
+        return max(r["gaps"]["max_position_gap_m"] for r in reports)
+
+    out = {}
+    want = launches_per_frame(FrontendConfig())
+
+    # (a) dryrun_multichip: one process, then the automatic 2-process tier.
+    t0 = time.perf_counter()
+    dr = entry.dryrun_multichip(MP_WORLD, "cuda")
+    secs = time.perf_counter() - t0
+    one, T = dr["one_process"], dr["one_process"]["frames"]
+    check(one["launches"] == {k: v * T for k, v in want.items()},
+          f"multiproc: dryrun launched {one['launches']} in one process, expected per batched frame {want}")
+    check("multi_process" in dr, "multiproc: dryrun_multichip ran no 2-process tier (MSCKF_MULTIPROC_AUTO)")
+    gap = check_ranks("dryrun", dr["multi_process"], want, T)
+    out["dryrun"] = dict(dr, seconds=secs, max_position_gap_m=gap)
+    print(f"[multiproc] (a) dryrun_multichip({MP_WORLD}): one process {MP_WORLD} lanes x {T} frames "
+          f"({one['seconds']:.2f} s), num_cams {one['num_cams']}, min after_ransac {one['min_after_ransac']}, "
+          f"launches per batched frame {per_frame(one['launches'], T)}; {MP_WORLD} ranks x 1 lane over gloo: "
+          f"launches per batched frame {[per_frame(r['launches'], T) for r in dr['multi_process']]}, largest gap to "
+          f"the one-lane runs {gap:.3g} m, total_tracks {dr['multi_process'][0]['total_tracks']} = "
+          f"{' + '.join(str(r['local_total_tracks']) for r in dr['multi_process'])}; {secs:.1f} s with start-up")
+
+    # (b) the vio workers against one-process runs of their blocks; the BA
+    # workers against the one-process solve.
+    fcfg_v, _, calib_v = multiproc.vio_configs()
+    want_v = launches_per_frame(fcfg_v, tuple(reversed(calib_v.cam0.resolution)))
+    t0 = time.perf_counter()
+    vio = multiproc.run_tier("vio", MP_WORLD, device="cuda")
+    secs_v = time.perf_counter() - t0
+    gap_v = check_ranks("vio", vio, want_v, multiproc.VIO_FRAMES)
+    t0 = time.perf_counter()
+    ba = multiproc.run_tier("ba", MP_WORLD, device="cuda")
+    secs_b = time.perf_counter() - t0
+    out["vio"] = dict(ranks=vio, seconds=secs_v, max_position_gap_m=gap_v)
+    out["ba"] = dict(ranks=ba, seconds=secs_b)
+    print(f"[multiproc] (b) vio workers: {multiproc.VIO_LANES} lanes over {MP_WORLD} ranks x "
+          f"{multiproc.VIO_FRAMES} frames at {calib_v.cam0.resolution}, launches per batched frame "
+          f"{[per_frame(r['launches'], multiproc.VIO_FRAMES) for r in vio]}, largest gap to the blocks' "
+          f"one-process runs {gap_v:.3g} m, total_tracks {vio[0]['total_tracks']} ({secs_v:.1f} s); ba workers: "
+          f"costs {[r['costs'] for r in ba]}, gaps to the one-process solve {[r['gaps'] for r in ba]} (bar 1e-9) "
+          f"({secs_b:.1f} s)")
+
+    # (c) the bench workers (one lane a rank on the shared card) against
+    # the one-process MP_WORLD-lane chunk, same reps.  No bar.
+    t0 = time.perf_counter()
+    bench = multiproc.run_tier("bench", MP_WORLD, 1, "cuda", tag="MULTIPROC_BENCH")
+    secs_c = time.perf_counter() - t0
+    one_ms = run_flagship_on(MP_WORLD, torch.device("cuda"), reps=MP_BENCH_REPS) * 1e3
+    out["bench"] = dict(ranks=bench, one_process_ms=one_ms, seconds=secs_c, reps=MP_BENCH_REPS)
+    print(f"[multiproc] (c) bench: {MP_WORLD} ranks x 1 lane x {bench[0]['frames']} frames on the one card: "
+          f"{[round(r['step_ms'], 1) for r in bench]} ms a chunk; one process, {MP_WORLD} lanes: {one_ms:.1f} ms "
+          f"a chunk ({card}; the ranks share the card: no multi-card number)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke"),
@@ -2447,6 +2557,7 @@ def main(argv=None) -> int:
     stress_out, stress_gate = timed("stress path", phase_stress, card)
     stress_lanes_out = timed("stress lanes", phase_stress_lanes, card)
     backend_out = timed("backend", phase_backend, scene, main_res, stress_gate, card, args.out)
+    multiproc_out = timed("multiproc", phase_multiproc, card)
 
     pick = {
         "lk_corr_align": next(r for r in rows if r["name"] == "lk_corr_align" and r["level"] == 0
@@ -2480,7 +2591,7 @@ def main(argv=None) -> int:
                    "main_path": main_out, "mode_sweep": sweep_out, "methods": methods_out, "profile": prof_out,
                    "stages": stage_out, "stress_lanes": stress_lanes_out,
                    "distinct_lanes": lanes_out, "batch_sweep": batch_out, "entry_point": entry_out, "euroc": euroc_out,
-                   "frontend_paths": paths_out, "backend": backend_out,
+                   "frontend_paths": paths_out, "backend": backend_out, "multiproc": multiproc_out,
                    "stress_path": stress_out, "phase_seconds": phase_seconds, "seconds": time.time() - t_start},
                   f, indent=1)
     print(f"[done] {time.time() - t_start:.1f} s")

@@ -145,3 +145,13 @@ def continuous_noise_cov(cfg: FilterConfig, dtype=torch.float64, device=None) ->
         ]
     )
     return torch.diag(torch.as_tensor(diag, dtype=dtype, device=device))
+
+
+def active_cam_mask(num_cams: torch.Tensor, M: int) -> torch.Tensor:
+    """(..., M) bool mask of active camera slots."""
+    return torch.arange(M, device=num_cams.device) < num_cams[..., None]
+
+
+def active_state_mask(num_cams: torch.Tensor, D: int) -> torch.Tensor:
+    """(..., D) bool mask of active error-state entries."""
+    return torch.arange(D, device=num_cams.device) < 21 + 6 * num_cams[..., None]

@@ -203,3 +203,17 @@ def check_motion_tracks(
     parallel = torch.sum(translation * ray_w, dim=-1, keepdim=True)
     orthogonal = translation - parallel * ray_w
     return torch.linalg.norm(orthogonal, dim=-1) > translation_threshold
+
+
+def triangulate_track(obs, obs_valid, cam_q, cam_p, R_c0_c1, t_c0_c1) -> TriangulationResult:
+    """One track: obs (M, 4), obs_valid (M,) seen from one window cam_q
+    (M, 4), cam_p (M, 3); the one-track view of ``triangulate_tracks``."""
+    res = triangulate_tracks(obs[None, None], obs_valid[None, None], cam_q[None], cam_p[None], R_c0_c1, t_c0_c1)
+    return TriangulationResult(*(x[0, 0] for x in res))
+
+
+def check_motion(obs, obs_valid, cam_q, cam_p, translation_threshold) -> torch.Tensor:
+    """Parallax gate of one track (feature.hpp:257-287); the one-track
+    view of ``check_motion_tracks``.  A negative threshold disables it."""
+    return check_motion_tracks(obs[None, None], obs_valid[None, None], cam_q[None], cam_p[None],
+                               translation_threshold)[0, 0]

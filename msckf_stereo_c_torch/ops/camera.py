@@ -98,3 +98,15 @@ def distort_points(
     else:
         xd = radtan_distort_normalized(pts_normalized, dist)
     return normalized_to_pixel(xd, intrinsics)
+
+
+def project_to_stereo_normalized(p_c0: torch.Tensor, R_c0_c1: torch.Tensor, t_c0_c1: torch.Tensor):
+    """Project cam0-frame points to both cameras' normalized image planes.
+
+    ``p_c1 = R_c0_c1 p_c0 + t_c0_c1`` (Kalibr T_cn_cnm1 convention, see
+    config.StereoCalib).  Returns ((..., 2) cam0, (..., 2) cam1, both
+    depths)."""
+    p_c1 = (R_c0_c1 @ p_c0[..., None])[..., 0] + t_c0_c1
+    z0 = p_c0[..., 2]
+    z1 = p_c1[..., 2]
+    return p_c0[..., :2] / z0[..., None], p_c1[..., :2] / z1[..., None], z0, z1

@@ -1,11 +1,15 @@
-"""B independent VIO sequences stepped together on one card (port of
-``msckf_stereo_c_tpu/parallel/vio_multiseq.py``, its one-card case).
+"""B independent VIO sequences stepped together, on one card or over the
+ranks of a process group (port of
+``msckf_stereo_c_tpu/parallel/vio_multiseq.py``).
 
 The JAX module runs B sequences under ``jax.vmap`` and shards them over a
 device mesh.  Here ``run_vio_batch`` steps the B lanes of one batched state
 frame by frame through ``models.vio.batched_vio_step``: every kernel
-launches once per frame for the features of all lanes.  Sharding the lanes
-over several cards is not ported yet.
+launches once per frame for the features of all lanes.
+``make_sharded_vio_runner`` is the sharded form: each rank of a process
+group steps its own block of lanes on its own device (every rank launches
+the kernels for its lanes), and the cross-sequence metrics are reduced
+over the group once a chunk.
 """
 from __future__ import annotations
 
@@ -21,8 +25,12 @@ from ..models.propagation import ImuBatch
 from ..models.runner import batched_apply_gravity_init
 from ..models.vio import VioState, _on_device, init_vio_state, stack_frames, step_frames
 from ..utils.lanes import map_tree
+from .collectives import all_reduce_max, all_reduce_sum, resolve_group
 
-__all__ = ["batched_gravity_init", "batched_init_vio_state", "broadcast_state", "run_vio_batch"]
+__all__ = [
+    "batched_gravity_init", "batched_init_vio_state", "broadcast_state", "make_sharded_vio_runner",
+    "run_vio_batch",
+]
 
 
 def batched_init_vio_state(
@@ -102,3 +110,34 @@ def run_vio_batch(
         "max_online_reset_count": torch.max(states.filt.online_reset_count),
     }
     return states, poses, fronts, metrics
+
+
+def make_sharded_vio_runner(
+    fparams: FrontendParams,
+    mparams: MsckfParams,
+    fcfg: FrontendConfig,
+    mcfg: FilterConfig,
+    method: str = "schur",
+    group=None,
+):
+    """The full-pipeline chunk runner of this rank.
+
+    The returned callable maps this rank's lanes, (states (B, ...), imgs0
+    (B, T, H, W), imgs1, times (B, T), imu (B, T, L, ...)) on the states'
+    device, to (new_states, poses, fronts, metrics) through
+    ``run_vio_batch``; ``metrics`` holds ``total_tracks`` summed and
+    ``max_online_reset_count`` maximised over the group's ranks (``group``
+    None: the default group when one is initialised, else this process
+    alone).  The two reductions run once a chunk, after the frame loop."""
+    group, _, _ = resolve_group(group)
+
+    def run(states: VioState, imgs0, imgs1, times, imu: ImuBatch):
+        states, poses, fronts, m = run_vio_batch(
+            states, imgs0, imgs1, times, imu, fparams, mparams, fcfg, mcfg, method,
+            device=states.filt.P.device,
+        )
+        (total,) = all_reduce_sum([m["total_tracks"]], group)
+        (max_reset,) = all_reduce_max([m["max_online_reset_count"]], group)
+        return states, poses, fronts, {"total_tracks": total, "max_online_reset_count": max_reset}
+
+    return run

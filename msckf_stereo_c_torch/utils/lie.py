@@ -73,3 +73,15 @@ def rot_from_two_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         safe, 1.0 / torch.where(safe, denom, torch.ones_like(denom)), torch.zeros_like(denom)
     )
     return _eye(3, a) + K + (K @ K) * factor[..., None, None]
+
+
+def se3_inverse(R: torch.Tensor, t: torch.Tensor):
+    """Inverse of the transform x -> R x + t, as (R^T, -R^T t). Batched."""
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def se3_compose(Ra, ta, Rb, tb):
+    """Compose transforms: (Ra,ta) applied after (Rb,tb):
+    x -> Ra (Rb x + tb) + ta. Batched."""
+    return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta

@@ -87,3 +87,16 @@ def small_angle_quaternion(dtheta: torch.Tensor) -> torch.Tensor:
     v = torch.where(small, dq, dq * scale_big)
     w = torch.where(small, w_small, scale_big)
     return torch.cat([v, w], dim=-1)
+
+
+def jpl_to_hamilton(q: torch.Tensor) -> torch.Tensor:
+    """A JPL world->body quaternion as the Hamilton body->world quaternion
+    [x, y, z, w] of trajectory export (TUM): C_jpl(q) = R_w_b is the
+    Hamilton rotation of the conjugate, and R_b_w = R_w_b^T undoes the
+    conjugation, so the components are unchanged."""
+    return q
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v by C(q): world->body application."""
+    return (jpl_to_rot(q) @ v[..., None])[..., 0]

@@ -142,3 +142,43 @@ def test_backend_modules_are_covered():
     assert BACKEND_MODULES <= set(_port_modules())
     paths = {os.path.relpath(p, ROOT) for p in _sources()}
     assert {m.replace(".", "/") + ".py" for m in BACKEND_MODULES} <= paths
+
+
+MULTIPROCESS_MODULES = {
+    "msckf_stereo_c_torch.parallel.multiseq", "msckf_stereo_c_torch.parallel.multiproc",
+    "msckf_stereo_c_torch.scripts.bench_scaling", "msckf_stereo_c_torch.io.viz",
+}
+
+
+def test_multiprocess_modules_are_covered():
+    """The filter-only multi-sequence runner, the multi-process tier, the
+    scaling script and the visualization copy are among the modules
+    imported without JAX and scanned for its names above."""
+    assert MULTIPROCESS_MODULES <= set(_port_modules())
+    paths = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {m.replace(".", "/") + ".py" for m in MULTIPROCESS_MODULES} <= paths
+
+
+def test_worker_process_loads_no_jax():
+    """A worker of the multi-process tier, run as ``launch_workers`` runs
+    it (``python -m ...parallel.multiproc``, here one CPU rank of the BA
+    worker), has no JAX module loaded when it is done."""
+    code = (
+        "import runpy, sys\n"
+        "from msckf_stereo_c_torch.parallel.multiproc import _free_port\n"
+        "sys.argv = ['multiproc', '--mode', 'ba', '--process-id', '0', '--num-processes', '1',\n"
+        "            '--coordinator', f'localhost:{_free_port()}', '--device', 'cpu', '--threads', '1']\n"
+        "try:\n"
+        "    runpy.run_module('msckf_stereo_c_torch.parallel.multiproc', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'msckf_stereo_c_tpu'))\n"
+        "assert 'msckf_stereo_c_torch.parallel.multiproc' in sys.modules\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"} | {"PYTHONPATH": ROOT},
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "MULTIPROC_OK ba" in r.stdout
