@@ -34,8 +34,9 @@ Phases, each of which fails the run (exit code 1) if it fails:
    dump and the poses of the run without it;
 7. profile: the last N_TAIL bench frames again, from the state the frames
    before them leave, under ``torch.profiler``: device busy share and the
-   kernels that take the device time (``<out>/profile.txt``); then once
-   more with each stage of a frame timed;
+   kernels that take the device time (``<out>/profile.txt``; a profile
+   with no device event is taken once more, then fails the run, here and
+   in the batch sweep); then once more with each stage of a frame timed;
 8. batched kernels: the four kernels of the main path on a B=4 image stack
    with a per-window image index, against their plain versions and against
    one launch per lane (bit-equal);
@@ -52,9 +53,17 @@ Phases, each of which fails the run (exit code 1) if it fails:
    busy share, device ops and host syncs per frame, peak device memory,
    launches per frame, and lane ATEs (at B=16 the worst lane within 1e-4 m
    of lane 0);
-11. entry point: ``python -m msckf_stereo_c_torch.bench`` at B=16 over 20
+11. stage split: the batch sweep's runs at B in SPLIT_BATCHES with each
+   stage function of a frame (``scripts/stage_split.py``: ``STAGES`` and the
+   lost-track update's sub-phases) in a ``torch.profiler.record_function``
+   range and nothing synchronised: host and device ms, device ops and share
+   of the step's device time per stage; every label with device events,
+   each sub-phase's device time within its parent's, the front end's and
+   the filter's totals plus the device time in no stage equal to the
+   step's device total within 1 %, launches exact;
+12. entry point: ``python -m msckf_stereo_c_torch.bench`` at B=16 over 20
    frames, its one JSON line parsed;
-12. euroc: the bench scene's frames written as a EuRoC ``mav0/`` directory
+13. euroc: the bench scene's frames written as a EuRoC ``mav0/`` directory
    (PNGs whose rows use all five filters) and read back through the
    package's apps: the decoder exact, ``apps/run_euroc.py`` with the three
    in-repo YAMLs (launches per frame from the loaded config's pyramid
@@ -63,7 +72,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    save and resume, ``apps/run_euroc_batch.py`` with B=2 (one lane padded)
    against one-lane runs, and ``entry.entry()``'s step on the card
    (``phase_euroc``);
-13. frontend paths: the tracker's paths off the bench configuration at
+14. frontend paths: the tracker's paths off the bench configuration at
    752x480 through ``run_vio_sequence`` (``phase_frontend_paths``): the
    fast-motion scene at temporal LK depths 2 and 4, and 1 where the
    phase's 100 s allow it, with tests/test_fast_motion.py's bars, the reference's own tracker
@@ -74,7 +83,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ``lk_corr_align`` and ``extract_template`` on the new call patterns
    (temporal levels 2 and 3 with two lanes folded in, the standalone anchor
    call) against their plain versions;
-14. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
+15. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
    (721 stereo frames rendered on the card with every stress channel on,
    ``klt_norm='gain'``), launch counts zeroed just before and read just
    after (7 ``lk_corr_align_gain``, 4 ``extract_template``, 1
@@ -82,7 +91,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    and track bars,
    frames/s and render time; then the first STRESS_STAGE_SECONDS again with
    each stage timed and its host syncs counted;
-15. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
+16. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
    ``sim/stress.py:run_stress_lanes`` run over STRESS_LANE_SECONDS of the
    stress scene (``klt_norm='none'``; each lane its own landmarks, IMU
    noise, photometric draws and images), launches 7 / 4 / 1 per batched
@@ -91,7 +100,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ATEs within 2e-4 m, in float32 (the stress script's dtype, whose batched
    products round by batch shape; over STRESS_LANE_F32_SECONDS) the ATE
    gap recorded;
-16. backend: the refinement back end on the card in float64
+17. backend: the refinement back end on the card in float64
    (``phase_backend``): (a) the main path's VioResult through
    ``parallel/refine.py:build_ba_problem`` (keyframes every 5 frames) and
    ``refine_trajectory(iters=8)``, held to the same call on CPU tensors
@@ -105,7 +114,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    the sharded BA and pose graph over ``gloo`` in DIST_WORLD processes on
    the one card (CUDA tensors), each rank equal to the one-process solve
    within DIST_TOL;
-17. multiproc: the multi-process tier on the card (``phase_multiproc``):
+18. multiproc: the multi-process tier on the card (``phase_multiproc``):
    (a) ``entry.dryrun_multichip(2)``, the bench configuration at 752x480,
    2 lanes x 22 frames in one process and then as 2 ranks over ``gloo``
    on the one card; (b) the ``vio`` workers (half resolution, 4 lanes over
@@ -116,7 +125,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    the first 10 frames, positions within 2e-4 m), the all-reduced
    ``total_tracks`` equal to the sum of the ranks' own totals, the BA
    ranks within 1e-9 of the one-process solve;
-18. the card's name and power limit, the ``{"kernels": [...]}`` line, then
+19. the card's name and power limit, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Details go to ``<out>/chip_smoke.json``.  The script imports nothing of JAX
@@ -175,8 +184,10 @@ STRESS_LANE_SEEDS = (0, 1)  # robustness seeds of the stress-lane run
 STRESS_LANE_SECONDS = 4.0  # its length in float64 (81 stereo frames; 6 s before the [multiproc] phase)
 STRESS_LANE_F32_SECONDS = 3.0  # its length in float32 (61 stereo frames)
 # Lanes of the batch sweep: bench.py's B=16 and powers of four around it,
-# up to where the card, not the host, sets the batched frame's time.
-SWEEP_BATCHES = (1, 4, 16, 64, 256, 1024)
+# up to where the card, not the host, sets the batched frame's time (B=4,
+# host-bound like B=1 and 16, left out to keep the script in its time).
+SWEEP_BATCHES = (1, 16, 64, 256, 1024)
+SPLIT_BATCHES = (1, 16, 1024)  # B of the stage split phase
 # The back end (phase_backend).  Card against CPU for the main path's BA:
 # costs within BA_CARD_TOL relative, positions and landmarks within
 # BA_CARD_TOL m; the distributed ranks against the one-process solve on the
@@ -251,6 +262,18 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def profiled_twice(take, tag: str):
+    """``take()`` -> (result, number of device events in its profile); taken
+    once more when the profile is empty, and the run fails if it is empty
+    again.  Returns (result, attempts)."""
+    for attempt in (1, 2):
+        result, n_events = take()
+        if n_events:
+            return result, attempt
+        print(f"{tag} attempt {attempt}: the profiler recorded no device event")
+    check(False, f"{tag} the profiler recorded no device event in two runs")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -1254,70 +1277,50 @@ def phase_profile(tail, n_tail, out_dir):
     """Device busy time per frame and the kernels that take it, as
     torch.profiler (CUPTI, device activity only) records them over one run
     of the ``n_tail`` last frames; the table goes to
-    ``<out_dir>/profile.txt``."""
+    ``<out_dir>/profile.txt``.  A profile with no device event is profiled
+    once more, and fails the phase if it is empty again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tail()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    def take():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tail()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        return (prof, wall, events), len(events)
+
+    (prof, wall, events), attempt = profiled_twice(take, "[profile]")
     dev_us = sum(e.self_device_time_total for e in events)
     calls = sum(e.count for e in events)
     with open(os.path.join(out_dir, "profile.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=50, max_name_column_width=120))
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     out = dict(frames=n_tail, wall_ms_per_frame=wall * 1e3 / n_tail, device_ms_per_frame=dev_us / 1e3 / n_tail,
-               device_ops_per_frame=calls / n_tail,
+               device_ops_per_frame=calls / n_tail, attempts=attempt,
                top=[dict(name=e.key, calls_per_frame=e.count / n_tail,
                          device_ms_per_frame=e.self_device_time_total / 1e3 / n_tail) for e in top])
-    if dev_us > 0:
-        print(f"[profile] {n_tail} frames, device activity traced: wall {out['wall_ms_per_frame']:.2f} ms/frame, "
-              f"device busy {out['device_ms_per_frame']:.3f} ms/frame ({100 * dev_us / 1e6 / wall:.1f}% of wall), "
-              f"{calls / n_tail:.0f} kernels and copies per frame")
-        for e in out["top"]:
-            print(f"[profile]   {e['device_ms_per_frame']:.4f} ms/frame, {e['calls_per_frame']:.0f} calls/frame: {e['name'][:80]}")
-    else:
-        print("[profile] the profiler recorded no device time: device busy share not measured")
+    print(f"[profile] {n_tail} frames, device activity traced: wall {out['wall_ms_per_frame']:.2f} ms/frame, "
+          f"device busy {out['device_ms_per_frame']:.3f} ms/frame ({100 * dev_us / 1e6 / wall:.1f}% of wall), "
+          f"{calls / n_tail:.0f} kernels and copies per frame")
+    for e in out["top"]:
+        print(f"[profile]   {e['device_ms_per_frame']:.4f} ms/frame, {e['calls_per_frame']:.0f} calls/frame: {e['name'][:80]}")
     return out
 
 
-# Stages of one frame timed by phase_stages: (module, attribute, label), in
-# the order a frame runs them.
-STAGES = (
-    ("msckf_stereo_c_torch.models.vio", "pyramids_for", "frontend: pyramids"),
-    ("msckf_stereo_c_torch.models.frontend", "optical_flow_lk_corr_l0", "frontend: temporal LK"),
-    ("msckf_stereo_c_torch.models.frontend", "_detect_candidates", "frontend: FAST candidates"),
-    ("msckf_stereo_c_torch.models.frontend", "optical_flow_pyr_lk_corr", "frontend: candidate coarse walk"),
-    ("msckf_stereo_c_torch.models.frontend", "stereo_anchor_lr_fused", "frontend: fused stereo fine level"),
-    ("msckf_stereo_c_torch.models.frontend", "_allocate_new_features", "frontend: allocate"),
-    ("msckf_stereo_c_torch.models.frontend", "_prune_grid_features", "frontend: prune"),
-    ("msckf_stereo_c_torch.models.frontend", "_publish", "frontend: publish"),
-    ("msckf_stereo_c_torch.models.msckf", "batched_propagate", "filter: propagate"),
-    ("msckf_stereo_c_torch.models.msckf", "augment_state", "filter: augment"),
-    ("msckf_stereo_c_torch.models.msckf", "add_feature_observations", "filter: observe"),
-    ("msckf_stereo_c_torch.models.msckf", "_remove_lost_features", "filter: lost-track update"),
-    ("msckf_stereo_c_torch.models.msckf", "_prune_cam_states", "filter: camera prune"),
-    ("msckf_stereo_c_torch.models.msckf", "_online_reset", "filter: online reset"),
-    ("msckf_stereo_c_torch.models.vio", "_run_frontend", "frontend total"),
-    ("msckf_stereo_c_torch.models.vio", "batched_filter_step", "filter total"),
-)
-
-
 def phase_stages(tail, n_tail, tag="stages"):
-    """Wall time of each stage of a frame over one run of the ``n_tail``
-    last frames: each stage function is wrapped for this phase by one that
-    synchronises the card before and after it (which adds those syncs to
-    the run)."""
-    import importlib
-
+    """Wall time of each stage of a frame (``stage_split.STAGES``) over one
+    run of the ``n_tail`` last frames: each stage function is wrapped for
+    this phase by one that synchronises the card before and after it
+    (which adds those syncs to the run)."""
     import torch
 
-    spent = {label: 0.0 for _, _, label in STAGES}
-    saved = []
+    from msckf_stereo_c_torch.scripts.stage_split import STAGES, wrapped
+
+    spent = {stage[-1]: 0.0 for stage in STAGES}
 
     def timed(fn, label):
         def wrapper(*args, **kwargs):
@@ -1329,17 +1332,10 @@ def phase_stages(tail, n_tail, tag="stages"):
             return out
         return wrapper
 
-    for mod_name, attr, label in STAGES:
-        mod = importlib.import_module(mod_name)
-        saved.append((mod, attr, getattr(mod, attr)))
-        setattr(mod, attr, timed(getattr(mod, attr), label))
-    try:
+    with wrapped(STAGES, timed):
         t0 = time.perf_counter()
         tail()
         wall = time.perf_counter() - t0
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
     out = {label: secs * 1e3 / n_tail for label, secs in spent.items()}
     out["frame"] = wall * 1e3 / n_tail
     print(f"[{tag}] {n_tail} frames, each stage synchronised: {out['frame']:.2f} ms/frame")
@@ -1533,42 +1529,23 @@ def phase_batch_sweep(scene, head_state, fcfg, mcfg, card, out_dir):
     two-frame warm-up at that B, one timed run (aggregate frames/s, peak
     device memory, launches per batched frame, lane ATEs), then one run
     under torch.profiler with every host sync counted (device busy share,
-    device ops and host syncs per batched frame)."""
+    device ops and host syncs per batched frame); a profile with no device
+    event is taken once more, and fails the phase if it is empty again."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from msckf_stereo_c_torch.config import EUROC_CALIB
-    from msckf_stereo_c_torch.models.frontend import make_frontend_params
-    from msckf_stereo_c_torch.models.msckf import make_params
-    from msckf_stereo_c_torch.models.runner import pack_imu_batches
     from msckf_stereo_c_torch.ops import _cuda
-    from msckf_stereo_c_torch.parallel.vio_multiseq import broadcast_state, run_vio_batch
-    from msckf_stereo_c_torch.utils.lanes import map_tree
+    from msckf_stereo_c_torch.scripts.stage_split import tail_run
 
     dev = torch.device("cuda")
-    f32 = torch.float32
     k0, T = FRAMES - N_TAIL, N_TAIL
-    frame_t = scene.frame_t
-    t_tail, gt = frame_t[k0:], scene.traj.p[scene.frame_idx[k0:]]
-    imgs0 = torch.as_tensor(scene.img0[k0:], dtype=f32).to(dev)
-    imgs1 = torch.as_tensor(scene.img1[k0:], dtype=f32).to(dev)
-    batches = pack_imu_batches(scene.imu.t, scene.imu.gyro, scene.imu.acc, t_tail, mcfg.max_imu_per_frame,
-                               np.float32, prev_frame_t=float(frame_t[k0 - 1]), device=dev)
-    fparams = make_frontend_params(EUROC_CALIB, f32, dev)
-    mparams = make_params(mcfg, EUROC_CALIB, f32, dev)
+    t_tail, gt = scene.frame_t[k0:], scene.traj.p[scene.frame_idx[k0:]]
     want = launches_per_frame(fcfg)
     rows = []
     for B in SWEEP_BATCHES:
-        states = broadcast_state(head_state, B)
-        times = torch.as_tensor(t_tail, dtype=f32).to(dev).expand(B, T)
-        imu = map_tree(lambda x: x.expand(B, *x.shape), batches)
-
-        def run(n=T):
-            return run_vio_batch(states, imgs0[:n], imgs1[:n], times[:, :n], map_tree(lambda x: x[:, :n], imu),
-                                 fparams, mparams, fcfg, mcfg, "schur", device=dev)
-
+        run = tail_run(scene, head_state, k0, B, fcfg, mcfg, "schur", dev)
         run(2)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1585,20 +1562,25 @@ def phase_batch_sweep(scene, head_state, fcfg, mcfg, card, out_dir):
         check(bool(np.isfinite(est).all()), f"batch sweep B={B}: non-finite poses")
         ates = np.array([_ate(t_tail, e, gt) for e in est])
 
-        prof_wall = []
+        def take():
+            prof_wall = []
 
-        def profiled():
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t1 = time.perf_counter()
-                run()
+            def profiled():
                 torch.cuda.synchronize()
-                prof_wall.append(time.perf_counter() - t1)
-            prof_wall.append(prof)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    prof_wall.append(time.perf_counter() - t1)
+                prof_wall.append(prof)
 
-        sites = package_sites(count_syncs(profiled))
-        wall, prof = prof_wall
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            sites = package_sites(count_syncs(profiled))
+            wall, prof = prof_wall
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            return (sites, wall, prof, events), len(events)
+
+        (sites, wall, prof, events), attempt = profiled_twice(take, f"[sweep] B={B}:")
         dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / T
         ops = sum(e.count for e in events) / T
         if B == SWEEP_BATCHES[-1]:
@@ -1607,7 +1589,7 @@ def phase_batch_sweep(scene, head_state, fcfg, mcfg, card, out_dir):
                                                   max_name_column_width=120))
         row = dict(B=B, frames=T, seconds=secs, fps=B * T / secs, ms_per_batched_frame=secs * 1e3 / T,
                    profiled_wall_ms_per_frame=wall * 1e3 / T, device_ms_per_frame=dev_ms,
-                   busy_share=dev_ms * T / 1e3 / wall if dev_ms > 0 else None, device_ops_per_frame=ops,
+                   busy_share=dev_ms * T / 1e3 / wall, profile_attempts=attempt, device_ops_per_frame=ops,
                    syncs_per_frame=sum(sites.values()) / T, peak_memory_gb=peak,
                    launches_per_frame={k: v / T for k, v in counts.items()},
                    ate_lane0_m=float(ates[0]), ate_worst_m=float(ates.max()),
@@ -1615,9 +1597,9 @@ def phase_batch_sweep(scene, head_state, fcfg, mcfg, card, out_dir):
                              device_ms_per_frame=e.self_device_time_total / 1e3 / T)
                         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]])
         rows.append(row)
-        busy = "not measured" if row["busy_share"] is None else f"{100 * row['busy_share']:.1f}%"
         print(f"[sweep] B={B:3d}: {row['fps']:8.2f} frames/s aggregate ({row['ms_per_batched_frame']:.2f} ms per "
-              f"batched frame); profiled: device {dev_ms:.3f} ms/frame, busy {busy}, {ops:.0f} device ops/frame; "
+              f"batched frame); profiled: device {dev_ms:.3f} ms/frame, busy {100 * row['busy_share']:.1f}%, "
+              f"{ops:.0f} device ops/frame; "
               f"{row['syncs_per_frame']:.2f} host syncs/frame; peak {peak:.3f} GB; ATE lane 0 {ates[0]:.6f} m, "
               f"worst {ates.max():.6f} m; on {card}")
     by_b = {r["B"]: r for r in rows}
@@ -1630,6 +1612,54 @@ def phase_batch_sweep(scene, head_state, fcfg, mcfg, card, out_dir):
         check(r16["syncs_per_frame"] <= 1.2 * r1["syncs_per_frame"],
               f"B=16: {r16['syncs_per_frame']} host syncs per frame (> 1.2 x {r1['syncs_per_frame']})")
     return rows
+
+
+def phase_stage_split(scene, head_state, fcfg, mcfg, card):
+    """The stage split (``scripts/stage_split.py``) at each B of
+    SPLIT_BATCHES over the batch sweep's N_TAIL frames from the same
+    state: every label's range holds device events, every hand kernel's
+    device event is placed in its stage, no sub-phase takes more device
+    time than its parent, the front end's and the filter's totals plus the
+    device time in no stage make the step's device total within 1 %, and
+    the launches are exact.  A profile with no device event is taken once
+    more, and fails the phase if it is empty again."""
+    import numpy as np
+    import torch
+
+    from msckf_stereo_c_torch.scripts.stage_split import FILTER_TOTAL, FRONTEND_TOTAL, parent_of, split_at, tail_run
+
+    k0, T = FRAMES - N_TAIL, N_TAIL
+    want = {k: v * T for k, v in launches_per_frame(fcfg).items()}
+    out = {}
+    for B in SPLIT_BATCHES:
+        run = tail_run(scene, head_state, k0, B, fcfg, mcfg, "schur", torch.device("cuda"))
+        def take():
+            result, table = split_at(run, tag="stage split")
+            return (result, table), table["device_ops"]
+
+        ((_, poses, _, _), table), attempt = profiled_twice(take, f"[stage split] B={B}:")
+        table["attempts"] = attempt
+        rows = table["stages"]
+        check(table["launches"] == want, f"[stage split] B={B}: launches {table['launches']}, expected {want}")
+        check(bool(np.isfinite(poses.p.cpu().numpy()).all()), f"[stage split] B={B}: non-finite poses")
+        check(table["hand_rest_ms"] == 0,
+              f"[stage split] B={B}: {table['hand_rest_ms']} ms of hand kernels in no stage "
+              f"({table['hand_events']} of {table['hand_launches']} launches placed)")
+        empty = [label for label, r in rows.items() if r["device_ops"] == 0]
+        check(not empty, f"[stage split] B={B}: no device event in the ranges of {empty}")
+        for label, r in rows.items():
+            parent = parent_of(label)
+            if parent is not None:
+                check(r["device_ms"] <= rows[parent]["device_ms"] * (1 + 1e-9),
+                      f"[stage split] B={B}: {label} {r['device_ms']} ms > {parent} {rows[parent]['device_ms']} ms")
+        parts = rows[FRONTEND_TOTAL]["device_ms"] + rows[FILTER_TOTAL]["device_ms"] + table["rest_ms"]
+        check(abs(parts - table["device_ms"]) <= 0.01 * table["device_ms"],
+              f"[stage split] B={B}: front end + filter + rest {parts} ms against the step's {table['device_ms']} ms")
+        print(f"[stage split] B={B}: front end {rows[FRONTEND_TOTAL]['device_ms']:.3f} + filter "
+              f"{rows[FILTER_TOTAL]['device_ms']:.3f} + rest {table['rest_ms']:.3f} = {parts:.3f} ms of device time "
+              f"per batched frame, step {table['device_ms']:.3f} ms; on {card}")
+        out[B] = table
+    return out
 
 
 def phase_entry_point(card):
@@ -2551,6 +2581,7 @@ def main(argv=None) -> int:
     stage_out = timed("stages", phase_stages, tail, N_TAIL)
     lanes_out = timed("distinct lanes", phase_distinct_lanes, scene, fcfg, mcfg, card)
     batch_out = timed("batch sweep", phase_batch_sweep, scene, head_state, fcfg, mcfg, card, args.out)
+    split_out = timed("stage split", phase_stage_split, scene, head_state, fcfg, mcfg, card)
     entry_out = timed("entry point", phase_entry_point, card)
     euroc_out = timed("euroc", phase_euroc, scene, card)
     paths_out = timed("frontend paths", phase_frontend_paths, scene, mcfg, card)
@@ -2590,7 +2621,7 @@ def main(argv=None) -> int:
                    "build_logs": build["logs"], "kernel_rows": rows, "stack_kernel_rows": stack_rows,
                    "main_path": main_out, "mode_sweep": sweep_out, "methods": methods_out, "profile": prof_out,
                    "stages": stage_out, "stress_lanes": stress_lanes_out,
-                   "distinct_lanes": lanes_out, "batch_sweep": batch_out, "entry_point": entry_out, "euroc": euroc_out,
+                   "distinct_lanes": lanes_out, "batch_sweep": batch_out, "stage_split": split_out, "entry_point": entry_out, "euroc": euroc_out,
                    "frontend_paths": paths_out, "backend": backend_out, "multiproc": multiproc_out,
                    "stress_path": stress_out, "phase_seconds": phase_seconds, "seconds": time.time() - t_start},
                   f, indent=1)

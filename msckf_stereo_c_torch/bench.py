@@ -125,11 +125,13 @@ class BatchRun(NamedTuple):
     method: str
     device: torch.device
 
-    def __call__(self):
-        """(states, poses, fronts, metrics) of one run over the scene."""
+    def __call__(self, n: int | None = None):
+        """(states, poses, fronts, metrics) of one run over the scene, or
+        over its first ``n`` frames."""
+        n = self.times.shape[1] if n is None else n
         return run_vio_batch(
-            self.states, self.imgs0, self.imgs1, self.times, self.imu, self.fparams, self.mparams,
-            self.fcfg, self.mcfg, self.method, device=self.device,
+            self.states, self.imgs0[:n], self.imgs1[:n], self.times[:, :n], map_tree(lambda x: x[:, :n], self.imu),
+            self.fparams, self.mparams, self.fcfg, self.mcfg, self.method, device=self.device,
         )
 
 

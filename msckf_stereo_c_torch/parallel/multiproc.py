@@ -7,8 +7,10 @@ collectives that cross a process boundary.  This module adds that tier:
 
 - ``init_distributed``: one process's bring-up as a rank of the group,
   over ``gloo`` on the CPU or when ranks share a card (NCCL refuses two
-  ranks on one device), over ``nccl`` when every rank has a card of its
-  own; the backend is chosen by that rule and printed in the worker's line;
+  ranks on one device), over ``nccl`` when every rank on its host has a
+  card of its own; the backend is chosen by that rule from the ranks on
+  this host (``LOCAL_WORLD_SIZE`` or ``--local-world-size``; the whole
+  group when neither is given) and printed in the worker's line;
 - per-process feeding and read-back: each rank builds only its block of
   lanes (``collectives.process_lane_range``; the BA worker its block of
   landmarks, with the poses replicated) on its own device, and reads back
@@ -22,7 +24,8 @@ collectives that cross a process boundary.  This module adds that tier:
   another process's counters), and ``launch_workers``, which spawns them.
 
 In the JAX module a process owns several devices of a global mesh.  Here a
-rank owns one device (``cuda:{rank % device_count}``, or the CPU), and its
+rank owns one device (``cuda:{local_rank % device_count}``, the local rank
+from ``LOCAL_RANK`` or ``--local-rank``, else the rank; or the CPU), and its
 "devices" (``--devices-per-process``) are its lanes of one batched step on
 that device.  Launch a tier by hand (the launcher form of ``main``):
 
@@ -68,20 +71,25 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 # Runtime bring-up
 
 
-def worker_device(device, rank: int) -> torch.device:
+def worker_device(device, rank: int, local_rank: int | None = None) -> torch.device:
     """A rank's device: the CPU when ``device`` names it, else
-    ``cuda:{rank % device_count}``; raises without a card."""
+    ``cuda:{local_rank % device_count}`` (``local_rank``, the rank's index
+    among the ranks on its host, is the rank itself when None: one host);
+    raises without a card."""
     if device is not None and torch.device(device).type == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run the workers on the CPU")
-    return torch.device("cuda", rank % torch.cuda.device_count())
+    return torch.device("cuda", (rank if local_rank is None else local_rank) % torch.cuda.device_count())
 
 
-def pick_backend(device: torch.device, num_processes: int) -> str:
-    """``nccl`` when every rank has a card of its own, else ``gloo`` (the
-    CPU, or several ranks on one card, which NCCL refuses)."""
-    if device.type == "cuda" and num_processes <= torch.cuda.device_count():
+def pick_backend(device: torch.device, num_processes: int, local_world_size: int | None = None) -> str:
+    """``nccl`` when every rank on this host has a card of its own, else
+    ``gloo`` (the CPU, or several ranks on one card, which NCCL refuses).
+    ``local_world_size``, the count of ranks on this host, is the whole
+    group's ``num_processes`` when None: one host."""
+    local = num_processes if local_world_size is None else local_world_size
+    if device.type == "cuda" and local <= torch.cuda.device_count():
         return "nccl"
     return "gloo"
 
@@ -93,14 +101,17 @@ def init_distributed(
     device=None,
     backend: str | None = None,
     timeout: float = TIMEOUT_S,
+    local_rank: int | None = None,
+    local_world_size: int | None = None,
 ):
     """Join THIS process to the group as rank ``process_id`` of
     ``num_processes`` at ``coordinator`` (``host:port``).  Returns (device,
-    backend); ``backend`` None picks it by ``pick_backend``.  Every
-    collective, the rendezvous included, gives up after ``timeout``
-    seconds, so a rank whose peer died does not wait for ever."""
-    dev = worker_device(device, process_id)
-    backend = backend or pick_backend(dev, num_processes)
+    backend); the device follows ``local_rank`` and ``backend`` None is
+    picked by ``pick_backend`` from ``local_world_size`` (both None on one
+    host).  Every collective, the rendezvous included, gives up after
+    ``timeout`` seconds, so a rank whose peer died does not wait for ever."""
+    dev = worker_device(device, process_id, local_rank)
+    backend = backend or pick_backend(dev, num_processes, local_world_size)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(
@@ -545,7 +556,8 @@ def launch_workers(
     root of the checkout and no JAX variables in their environment, on the
     card unless ``device`` names the CPU, with the caller's count of CPU
     threads (so a one-process reference run in the caller rounds as the
-    workers do).  When one rank fails, the others are killed; after
+    workers do), each told its local rank and the local world size (all
+    ranks run on this host).  When one rank fails, the others are killed; after
     ``timeout`` seconds every rank still running is killed."""
     dev = "cpu" if device is not None and torch.device(device).type == "cpu" else "cuda"
     if dev == "cuda":
@@ -562,6 +574,7 @@ def launch_workers(
                 "--mode", mode, "--process-id", str(pid), "--num-processes", str(num_processes),
                 "--coordinator", f"localhost:{port}", "--devices-per-process", str(devices_per_process),
                 "--device", dev, "--threads", str(torch.get_num_threads()), "--timeout", str(timeout),
+                "--local-rank", str(pid), "--local-world-size", str(num_processes),
             ]
             if ref_path:
                 cmd += ["--ref", ref_path]
@@ -627,6 +640,11 @@ def run_tier(mode: str, num_processes: int, devices_per_process: int = 1, device
     return [r[0] for r in check_workers(results, tag)]
 
 
+def _env_int(name: str) -> int | None:
+    raw = os.environ.get(name)
+    return None if raw is None else int(raw)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", choices=tuple(_WORKERS), required=True)
@@ -639,6 +657,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="'cpu' to run on the CPU; the card otherwise")
     ap.add_argument("--threads", type=int, default=None, help="torch CPU threads of each worker")
     ap.add_argument("--timeout", type=float, default=TIMEOUT_S, help="seconds before the ranks give up")
+    ap.add_argument("--local-rank", type=int, default=_env_int("LOCAL_RANK"),
+                    help="this worker's index among the ranks on its host (default $LOCAL_RANK, else the rank)")
+    ap.add_argument("--local-world-size", type=int, default=_env_int("LOCAL_WORLD_SIZE"),
+                    help="ranks on this host (default $LOCAL_WORLD_SIZE, else --num-processes)")
     args = ap.parse_args(argv)
 
     if args.threads:
@@ -651,7 +673,8 @@ def main(argv=None) -> int:
             print(f"{tag} {r.pop('mode')} {json.dumps(r)}")
         return 0
     device, backend = init_distributed(args.coordinator, args.num_processes, args.process_id, args.device,
-                                       timeout=args.timeout)
+                                       timeout=args.timeout, local_rank=args.local_rank,
+                                       local_world_size=args.local_world_size)
     try:
         _WORKERS[args.mode](args, device, backend)
     finally:

@@ -163,3 +163,47 @@ def test_no_card_no_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert tmproc.pick_backend(torch.device("cuda", 0), 4) == "nccl"
     assert tmproc.pick_backend(torch.device("cuda", 0), 8) == "gloo"
+
+
+def test_backend_and_device_follow_the_local_ranks(monkeypatch):
+    """On a host of four cards, the backend is decided by the ranks on that
+    host and the card by the local rank; with no local values, one host
+    holds every rank (the single-host results above)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    card = torch.device("cuda", 0)
+    assert tmproc.pick_backend(card, 8, local_world_size=4) == "nccl"
+    assert tmproc.pick_backend(card, 8, local_world_size=5) == "gloo"
+    assert tmproc.pick_backend(torch.device("cpu"), 8, local_world_size=4) == "gloo"
+    assert tmproc.worker_device(None, 13, local_rank=5) == torch.device("cuda", 1)
+    assert tmproc.worker_device(None, 5, local_rank=0) == torch.device("cuda", 0)
+    assert tmproc.worker_device("cpu", 5, local_rank=1) == torch.device("cpu")
+    # No local values: local size = world size, local rank = rank.
+    assert tmproc.pick_backend(card, 4) == "nccl"
+    assert tmproc.pick_backend(card, 8) == "gloo"
+    assert tmproc.worker_device(None, 6) == torch.device("cuda", 2)
+
+
+def test_main_reads_the_local_ranks(monkeypatch):
+    """``main`` takes the local rank and size from ``--local-rank`` /
+    ``--local-world-size``, else from ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE``,
+    and hands them to ``init_distributed``."""
+    seen = []
+
+    def fake_init(coordinator, num_processes, process_id, device=None, backend=None, timeout=0.0,
+                  local_rank=None, local_world_size=None):
+        seen.append((process_id, local_rank, local_world_size))
+        raise SystemExit(0)
+
+    monkeypatch.setattr(tmproc, "init_distributed", fake_init)
+    base = ["--mode", "ba", "--process-id", "6", "--num-processes", "8", "--coordinator", "h:1"]
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    for argv in (base, base + ["--local-rank", "2", "--local-world-size", "4"]):
+        with pytest.raises(SystemExit):
+            tmproc.main(argv)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    with pytest.raises(SystemExit):
+        tmproc.main(base)
+    assert seen == [(6, None, None), (6, 2, 4), (6, 3, 4)]
