@@ -16,7 +16,10 @@ Phases, each of which fails the run (exit code 1) if it fails:
    filters); kernel, device, plain and library-call times (CUDA events,
    torch.profiler) beside the least time the card could take, and for the
    redesigned kernels the kernel chains they replace, timed in the same
-   run;
+   run; ``lk_corr_align``, ``lk_corr_align_gain`` (N=144) and
+   ``resample_template`` again at one and three bf16 passes against their
+   plain versions at the same passes, with the same bars, and their
+   device times;
 4. main path: ``run_vio_sequence`` over the bench scene (752x480 stereo,
    the configuration ``bench.py`` runs, B=1) with the kernel launch counts
    zeroed just before and read just after (7 ``lk_corr_align``, 4
@@ -61,9 +64,17 @@ Phases, each of which fails the run (exit code 1) if it fails:
    each sub-phase's device time within its parent's, the front end's and
    the filter's totals plus the device time in no stage equal to the
    step's device total within 1 %, launches exact;
-12. entry point: ``python -m msckf_stereo_c_torch.bench`` at B=16 over 20
+12. precision: the bf16 precision names (``phase_precision``): the
+   filter/front-end specs of PRECISION_SPECS over the first
+   PRECISION_FRAMES bench frames at B=1 through ``run_vio_sequence``, each
+   with its launches exact, frames/s, host syncs and ATE (under 0.13 m
+   for the three-pass specs and the bench's; the one-pass specs recorded
+   as found, a non-finite ATE included); then the stage split at
+   B=PRECISION_BATCH of PRECISION_BATCH_SPECS from the batch sweep's
+   state: device ms a batched frame and the Schur gating's row;
+13. entry point: ``python -m msckf_stereo_c_torch.bench`` at B=16 over 20
    frames, its one JSON line parsed;
-13. euroc: the bench scene's frames written as a EuRoC ``mav0/`` directory
+14. euroc: the bench scene's frames written as a EuRoC ``mav0/`` directory
    (PNGs whose rows use all five filters) and read back through the
    package's apps: the decoder exact, ``apps/run_euroc.py`` with the three
    in-repo YAMLs (launches per frame from the loaded config's pyramid
@@ -72,7 +83,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    save and resume, ``apps/run_euroc_batch.py`` with B=2 (one lane padded)
    against one-lane runs, and ``entry.entry()``'s step on the card
    (``phase_euroc``);
-14. frontend paths: the tracker's paths off the bench configuration at
+15. frontend paths: the tracker's paths off the bench configuration at
    752x480 through ``run_vio_sequence`` (``phase_frontend_paths``): the
    fast-motion scene at temporal LK depths 2 and 4, and 1 where the
    phase's 100 s allow it, with tests/test_fast_motion.py's bars, the reference's own tracker
@@ -83,7 +94,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ``lk_corr_align`` and ``extract_template`` on the new call patterns
    (temporal levels 2 and 3 with two lanes folded in, the standalone anchor
    call) against their plain versions;
-15. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
+16. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
    (721 stereo frames rendered on the card with every stress channel on,
    ``klt_norm='gain'``), launch counts zeroed just before and read just
    after (7 ``lk_corr_align_gain``, 4 ``extract_template``, 1
@@ -91,7 +102,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    and track bars,
    frames/s and render time; then the first STRESS_STAGE_SECONDS again with
    each stage timed and its host syncs counted;
-16. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
+17. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
    ``sim/stress.py:run_stress_lanes`` run over STRESS_LANE_SECONDS of the
    stress scene (``klt_norm='none'``; each lane its own landmarks, IMU
    noise, photometric draws and images), launches 7 / 4 / 1 per batched
@@ -100,7 +111,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ATEs within 2e-4 m, in float32 (the stress script's dtype, whose batched
    products round by batch shape; over STRESS_LANE_F32_SECONDS) the ATE
    gap recorded;
-17. backend: the refinement back end on the card in float64
+18. backend: the refinement back end on the card in float64
    (``phase_backend``): (a) the main path's VioResult through
    ``parallel/refine.py:build_ba_problem`` (keyframes every 5 frames) and
    ``refine_trajectory(iters=8)``, held to the same call on CPU tensors
@@ -114,7 +125,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    the sharded BA and pose graph over ``gloo`` in DIST_WORLD processes on
    the one card (CUDA tensors), each rank equal to the one-process solve
    within DIST_TOL;
-18. multiproc: the multi-process tier on the card (``phase_multiproc``):
+19. multiproc: the multi-process tier on the card (``phase_multiproc``):
    (a) ``entry.dryrun_multichip(2)``, the bench configuration at 752x480,
    2 lanes x 22 frames in one process and then as 2 ranks over ``gloo``
    on the one card; (b) the ``vio`` workers (half resolution, 4 lanes over
@@ -125,7 +136,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    the first 10 frames, positions within 2e-4 m), the all-reduced
    ``total_tracks`` equal to the sum of the ranks' own totals, the BA
    ranks within 1e-9 of the one-process solve;
-19. the card's name and power limit, the ``{"kernels": [...]}`` line, then
+20. the card's name and power limit, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Details go to ``<out>/chip_smoke.json``.  The script imports nothing of JAX
@@ -184,10 +195,25 @@ STRESS_LANE_SEEDS = (0, 1)  # robustness seeds of the stress-lane run
 STRESS_LANE_SECONDS = 4.0  # its length in float64 (81 stereo frames; 6 s before the [multiproc] phase)
 STRESS_LANE_F32_SECONDS = 3.0  # its length in float32 (61 stereo frames)
 # Lanes of the batch sweep: bench.py's B=16 and powers of four around it,
-# up to where the card, not the host, sets the batched frame's time (B=4,
-# host-bound like B=1 and 16, left out to keep the script in its time).
-SWEEP_BATCHES = (1, 16, 64, 256, 1024)
+# up to where the card, not the host, sets the batched frame's time (B=4
+# and B=64, host-bound like B=1 and 16, left out to keep the script in its
+# time).
+SWEEP_BATCHES = (1, 16, 256, 1024)
 SPLIT_BATCHES = (1, 16, 1024)  # B of the stage split phase
+# The [precision] phase: filter/front-end specs over the first
+# PRECISION_FRAMES bench frames, each with whether its ATE is held under
+# 0.13 m (the one-pass specs are recorded as found), and the specs of its
+# stage split at B = PRECISION_BATCH.
+PRECISION_FRAMES = 30
+PRECISION_SPECS = (
+    ("tensorfloat32/tensorfloat32", True),  # the bench configuration
+    ("bfloat16_3x/bfloat16_3x", True),
+    ("float32/bfloat16_3x", True),
+    ("float32/bfloat16", False),
+    ("bfloat16/tensorfloat32", False),
+)
+PRECISION_BATCH = 256
+PRECISION_BATCH_SPECS = ("tensorfloat32/tensorfloat32", "bfloat16_3x/tensorfloat32")
 # The back end (phase_backend).  Card against CPU for the main path's BA:
 # costs within BA_CARD_TOL relative, positions and landmarks within
 # BA_CARD_TOL m; the distributed ranks against the one-process solve on the
@@ -708,7 +734,76 @@ def align_rows(pyr_a, pyr_b, corners, fcfg, norm):
               f"{_fmt(dev0_ms)} with no step); before (K2 + conv2d + {loop_name}) {before_ms:.4f} ms (device "
               f"{_fmt(before_dev)}); conv2d alone {lib:.4f} ms; plain {plain:.4f} ms; bound {b:.7f} ms "
               f"({by}: {n_bytes} B, {n_ops} flops); whole surfaces {full_ms:.6f} ms")
+        if N == 144:
+            row["passes"] = align_passes(name, tag, fn, ref, args, surf, nf, tq, f0, sc, pts_of, ok_mask)
     return rows
+
+
+def align_passes(name, tag, fn, ref, args, surf_f32, nf, tq, f0, sc, pts_of, ok_mask):
+    """The bf16 passes (1 and 3) of one ``align_rows`` problem: the kernel
+    against its plain version (the surfaces by the bf16 GEMMs of
+    ``ops/precision.py``, the float32 loop) with the float32 rows' bars,
+    each on the part it holds: every surface within 1e-5 x its max|C| of
+    the plain version's; the points within K1_TOL of the plain loop run on
+    the kernel's own surfaces; frozen lanes unmoved; the surfaces moved
+    from the float32 ones.  The float32 rows hold K1_TOL end to end because
+    their surfaces are bit-equal to the plain ``conv2d``'s; the bf16 GEMMs
+    sum in another order, and a lane near a degenerate step takes another
+    path on surfaces a rounding apart, so the points' distance to the
+    plain version end to end is recorded, not held.  Device time a launch
+    with and without LK steps (the surface phase's cost), per call and
+    plain times."""
+    import torch
+
+    from msckf_stereo_c_torch.ops import klt_corr as kc
+
+    loop = kc.lk_corr_iterate_reference if nf == 2 else kc.lk_corr_iterate_gain_reference
+    iters, eps, hi = args[-3:]
+    # How far the plain loop moves on the float32 surfaces nudged by 1e-6 x
+    # max|C| (normal noise, seed 0): the spread a rounding apart allows.
+    g = torch.Generator(device=surf_f32.device).manual_seed(0)
+    base = loop(sc, *(surf_f32[:, i] for i in range(nf)), iters, eps, hi)
+    nudged = loop(sc, *(surf_f32[:, i] + 1e-6 * surf_f32[:, i].abs().max()
+                        * torch.randn(surf_f32[:, i].shape, generator=g, device=surf_f32.device)
+                        for i in range(nf)), iters, eps, hi)
+    m_base = ok_mask(pts_of(base))
+    nudge = float((nudged - base)[m_base].abs().max()) if bool(m_base.any()) else 0.0
+    print(f"[{tag}] the plain loop on the float32 surfaces nudged by 1e-6 x max|C|: points move up to {nudge:.3g} px")
+    out = {"f32_nudge_px": nudge}
+    for p in (1, 3):
+        surf = torch.empty_like(surf_f32)
+        surf_ref = torch.empty_like(surf_f32)
+        got = fn(*args, surfaces_out=surf, passes=p)
+        want = ref(*args, surfaces_out=surf_ref, passes=p)
+        torch.cuda.synchronize()
+        cmax = [float(surf_ref[:, i].abs().max()) for i in range(nf)]
+        serr = [float((surf[:, i] - surf_ref[:, i]).abs().max()) for i in range(nf)]
+        for i in range(nf):
+            check(serr[i] <= 1e-5 * cmax[i], f"{name} passes={p}: surface {i} differs by {serr[i]} (> 1e-5 x {cmax[i]})")
+        check(not torch.equal(surf, surf_f32), f"{name} passes={p}: the surfaces are the float32 ones")
+        on_surf = loop(sc, *(surf[:, i] for i in range(nf)), iters, eps, hi)
+        m_loop = ok_mask(pts_of(on_surf))
+        check(bool(torch.isfinite(got).all()), f"{name} passes={p}: non-finite output")
+        check(torch.equal(got[~tq.good], f0[~tq.good]), f"{name} passes={p}: a frozen lane moved")
+        err = float((got - on_surf)[m_loop].abs().max()) if bool(m_loop.any()) else 0.0
+        check(err <= K1_TOL, f"{name} passes={p}: differs by {err} px (> {K1_TOL}) from the plain loop on its "
+                             f"surfaces")
+        m_want = ok_mask(pts_of(want))
+        d = (got - want)[m_want].abs().amax(-1)
+        e2e = float(d.max()) if bool(m_want.any()) else 0.0
+        apart = int((d > K1_TOL).sum())
+        dev = device_ms(lambda: fn(*args, passes=p), f"{name}_kernel")
+        dev0 = device_ms(lambda: fn(*args[:-3], 0, args[-2], args[-1], passes=p), f"{name}_kernel")
+        ms = cuda_ms(lambda: fn(*args, passes=p), reps=200)
+        plain = cuda_ms(lambda: ref(*args, passes=p), reps=10)
+        out[p] = dict(max_abs_err=err, end_to_end_err=e2e, lanes_apart=apart, surface_err=serr, surface_max=cmax,
+                      device_ms=dev, device_ms_no_steps=dev0, ms=ms, plain_ms=plain)
+        print(f"[{tag}] passes={p} N={sc.shape[0]}: max |df| {err:.2e} px from the plain loop on the kernel's "
+              f"surfaces (tol {K1_TOL}), {e2e:.3g} px end to end ({apart} of {int(m_want.sum())} lanes over "
+              f"{K1_TOL}), surfaces within "
+              + ", ".join(f"{e:.3g} of max |C| {m:.4g}" for e, m in zip(serr, cmax))
+              + f"; device {_fmt(dev)} ({_fmt(dev0)} with no step), per call {ms:.4f} ms, plain {plain:.4f} ms")
+    return out
 
 
 def resample_rows(img_a, img_b, corners, fcfg):
@@ -785,9 +880,29 @@ def resample_rows(img_a, img_b, corners, fcfg):
           f"equal ({int(good_want.sum())} good); per call {ms:.4f} ms (device {_fmt(dev_ms)}), before (K2 block + "
           f"tent weights + einsum) {before_ms:.4f} ms (device {_fmt(before_dev)}), plain {plain:.4f} ms, "
           f"grid_sample {lib:.4f} ms, bound {b:.6f} ms ({by}, {n_bytes} B)")
+    # The bf16 passes: weights and pixels rounded as the passes see them,
+    # the float32 rows' bars.
+    passes = {}
+    for p in (1, 3):
+        got_p = kc.resample_template(img_b, pts, org, Sb, P, passes=p)
+        want_p = kc.resample_template_reference(img_b, pts, org, Sb, P, passes=p)
+        torch.cuda.synchronize()
+        vmax_p = float(want_p.abs().max())
+        err_p = float((got_p - want_p).abs().max())
+        check(bool(torch.isfinite(got_p).all()), f"resample_template passes={p}: non-finite output")
+        check(err_p <= 2e-6 * vmax_p, f"resample_template passes={p}: differs by {err_p} (> 2e-6 x {vmax_p})")
+        check(not torch.equal(got_p, got), f"resample_template passes={p}: the float32 templates")
+        dev_p = device_ms(lambda: kc.resample_template(img_b, pts, org, Sb, P, passes=p), "resample_template_kernel")
+        ms_p = cuda_ms(lambda: kc.resample_template(img_b, pts, org, Sb, P, passes=p), reps=200)
+        plain_p = cuda_ms(lambda: kc.resample_template_reference(img_b, pts, org, Sb, P, passes=p), reps=50)
+        passes[p] = dict(max_abs_err=err_p, max_abs=vmax_p, device_ms=dev_p, ms=ms_p, plain_ms=plain_p,
+                         max_abs_from_f32=float((got_p - got).abs().max()))
+        print(f"[resample] passes={p}: within {err_p:.3g} of max {vmax_p:.4g} (tol 2e-6 x max), "
+              f"{passes[p]['max_abs_from_f32']:.3g} from the float32 templates; device {_fmt(dev_p)}, "
+              f"per call {ms_p:.4f} ms, plain {plain_p:.4f} ms")
     return [dict(name="resample_template", level=0, H=H, W=W, N=N, Sb=Sb, max_abs_err=err, max_abs=vmax, ms=ms,
                  device_ms=dev_ms, plain_ms=plain, library_ms=lib, before_ms=before_ms,
-                 before_device_ms=before_dev, bound_bytes=n_bytes, bound_ms=b, bound_by=by)]
+                 before_device_ms=before_dev, bound_bytes=n_bytes, bound_ms=b, bound_by=by, passes=passes)]
 
 
 def phase_main_path(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
@@ -1660,6 +1775,133 @@ def phase_stage_split(scene, head_state, fcfg, mcfg, card):
               f"per batched frame, step {table['device_ms']:.3f} ms; on {card}")
         out[B] = table
     return out
+
+
+def phase_precision(scene, head_state, fcfg, mcfg, card, out_dir):
+    """The bf16 precision names on the bench scene: each filter/front-end
+    spec of PRECISION_SPECS over the first PRECISION_FRAMES frames (B=1)
+    through ``run_vio_sequence``, launch counts zeroed just before and read
+    just after (exact, ``launches_per_frame``), frames/s with every host
+    sync counted, ATE (under 0.13 m for the specs marked so; the others,
+    JAX's notes expect to diverge, are recorded as found, a non-finite ATE
+    included), and the positions of every spec but the bench's apart from
+    the bench's (the passes reached the run); then at B=PRECISION_BATCH,
+    from the batch sweep's state, the stage split
+    (``scripts/stage_split.py``) of PRECISION_BATCH_SPECS: device ms a
+    batched frame and the Schur gating's row, no bar, and one more
+    profiled run of each whose kernel table goes to
+    ``<out_dir>/profile_precision_b<B>_<spec>.txt``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from msckf_stereo_c_torch.config import EUROC_CALIB
+    from msckf_stereo_c_torch.io.tum import evaluate_ate
+    from msckf_stereo_c_torch.models.vio import run_vio_sequence
+    from msckf_stereo_c_torch.ops import _cuda
+    from msckf_stereo_c_torch.scripts.stage_split import split_at, tail_run
+
+    def configs(spec):
+        filt, front = spec.split("/")
+        return dataclasses.replace(fcfg, matmul_precision=front), dataclasses.replace(mcfg, matmul_precision=filt)
+
+    T = PRECISION_FRAMES
+    frame_t, gt = scene.frame_t[:T], scene.traj.p[scene.frame_idx[:T]]
+    rows, positions = {}, {}
+    for spec, gated in PRECISION_SPECS:
+        f, m = configs(spec)
+
+        def run(n):
+            return run_vio_sequence(f, m, EUROC_CALIB, frame_t[:n], scene.img0[:n], scene.img1[:n], scene.imu.t,
+                                    scene.imu.gyro, scene.imu.acc, image_dtype=torch.float32,
+                                    filter_dtype=torch.float32, method="schur", device="cuda")
+
+        run(3)  # warm-up: the bf16 GEMMs' handles and plans
+        torch.cuda.synchronize()
+        timed = []
+
+        def timed_run():
+            t0 = time.perf_counter()
+            res = run(T)  # ends in a device-to-host copy of the outputs
+            torch.cuda.synchronize()
+            timed.append((time.perf_counter() - t0, res))
+
+        _cuda.reset_launch_counts()
+        sites = count_syncs(timed_run)
+        counts = dict(_cuda.launch_counts)
+        secs, res = timed[0]
+        want = launches_per_frame(f)
+        check(counts == {k: v * T for k, v in want.items()},
+              f"[precision] {spec}: launches {counts}, expected per frame {want}")
+        finite = bool(np.isfinite(res.positions).all())
+        ate = float(evaluate_ate(frame_t, res.positions, frame_t, gt).rmse) if finite else float("inf")
+        tracks = res.tracking["after_ransac"]
+        top = sorted(sites.items(), key=lambda kv: -kv[1])[:3]
+        rows[spec] = dict(frames=T, seconds=secs, fps=T / secs, ate_rmse_m=ate, finite=finite,
+                          syncs_per_frame=sum(sites.values()) / T, sync_sites={k: v / T for k, v in top},
+                          tracks_min=int(np.min(tracks[1:])), tracks_mean=float(np.mean(tracks)), launches=counts,
+                          gated=gated)
+        print(f"[precision] filter/front end {spec}: ATE {ate:.6f} m{' (bar 0.13 m)' if gated else ' (recorded)'}, "
+              f"{T / secs:.2f} frames/s (B=1, sync debug mode on), {sum(sites.values()) / T:.2f} host syncs a "
+              f"frame (" + ", ".join(f"{v / T:.2f} at {k}" for k, v in top) + f"), tracks mean "
+              f"{np.mean(tracks):.1f} min {np.min(tracks[1:])}, launches {counts}; on {card}")
+        if gated:
+            check(finite and ate < 0.13, f"[precision] {spec}: ATE {ate} m is not under the 0.13 m bar")
+        positions[spec] = res.positions
+    bench = PRECISION_SPECS[0][0]
+    for spec, _ in PRECISION_SPECS[1:]:
+        check(not np.array_equal(positions[spec], positions[bench]),
+              f"[precision] {spec}: the positions are the bench spec's: the passes did not reach the run")
+
+    k0 = FRAMES - N_TAIL
+    batch = {}
+    want = {k: v * N_TAIL for k, v in launches_per_frame(fcfg).items()}
+    for spec in PRECISION_BATCH_SPECS:
+        f, m = configs(spec)
+        run = tail_run(scene, head_state, k0, PRECISION_BATCH, f, m, "schur", torch.device("cuda"))
+
+        def take():
+            result, table = split_at(run, tag=f"precision B={PRECISION_BATCH} {spec}")
+            return (result, table), table["device_ops"]
+
+        ((_, poses, _, _), table), attempt = profiled_twice(take, f"[precision] B={PRECISION_BATCH} {spec}:")
+        check(table["launches"] == want, f"[precision] B={PRECISION_BATCH} {spec}: launches {table['launches']}")
+        est = poses.p.cpu().numpy()
+        lane0 = _ate(scene.frame_t[k0:], est[0], scene.traj.p[scene.frame_idx[k0:]]) \
+            if np.isfinite(est).all() else float("inf")
+        gating = table["stages"]["lost: Schur gating"]
+
+        def take_kernels():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            return (prof, events), len(events)
+
+        (prof, events), _ = profiled_twice(take_kernels, f"[precision] B={PRECISION_BATCH} {spec} kernels:")
+        with open(os.path.join(out_dir, f"profile_precision_b{PRECISION_BATCH}_{spec.replace('/', '_')}.txt"),
+                  "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40,
+                                              max_name_column_width=120))
+        kernels = [dict(name=e.key, calls_per_frame=e.count / N_TAIL,
+                        device_ms_per_frame=e.self_device_time_total / 1e3 / N_TAIL)
+                   for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]]
+        batch[spec] = dict(B=PRECISION_BATCH, frames=N_TAIL, device_ms=table["device_ms"],
+                           device_ops=table["device_ops"], wall_ms=table["wall_ms"],
+                           schur_gating_device_ms=gating["device_ms"], schur_gating_share=gating["share"],
+                           ate_lane0_m=lane0, profile_attempts=attempt, top_kernels=kernels)
+        print(f"[precision] B={PRECISION_BATCH} filter/front end {spec}: step device {table['device_ms']:.3f} ms a "
+              f"batched frame, Schur gating {gating['device_ms']:.3f} ms ({100 * gating['share']:.1f} %), "
+              f"{table['device_ops']:.0f} device ops, lane 0 ATE over the tail {lane0:.6f} m; on {card}")
+        for k in kernels:
+            print(f"[precision]   {k['device_ms_per_frame']:8.3f} ms {k['calls_per_frame']:7.1f} calls a frame  "
+                  f"{k['name'][:110]}")
+    return dict(rows=rows, batch=batch)
 
 
 def phase_entry_point(card):
@@ -2582,6 +2824,7 @@ def main(argv=None) -> int:
     lanes_out = timed("distinct lanes", phase_distinct_lanes, scene, fcfg, mcfg, card)
     batch_out = timed("batch sweep", phase_batch_sweep, scene, head_state, fcfg, mcfg, card, args.out)
     split_out = timed("stage split", phase_stage_split, scene, head_state, fcfg, mcfg, card)
+    precision_out = timed("precision", phase_precision, scene, head_state, fcfg, mcfg, card, args.out)
     entry_out = timed("entry point", phase_entry_point, card)
     euroc_out = timed("euroc", phase_euroc, scene, card)
     paths_out = timed("frontend paths", phase_frontend_paths, scene, mcfg, card)
@@ -2621,7 +2864,7 @@ def main(argv=None) -> int:
                    "build_logs": build["logs"], "kernel_rows": rows, "stack_kernel_rows": stack_rows,
                    "main_path": main_out, "mode_sweep": sweep_out, "methods": methods_out, "profile": prof_out,
                    "stages": stage_out, "stress_lanes": stress_lanes_out,
-                   "distinct_lanes": lanes_out, "batch_sweep": batch_out, "stage_split": split_out, "entry_point": entry_out, "euroc": euroc_out,
+                   "distinct_lanes": lanes_out, "batch_sweep": batch_out, "stage_split": split_out, "precision": precision_out, "entry_point": entry_out, "euroc": euroc_out,
                    "frontend_paths": paths_out, "backend": backend_out, "multiproc": multiproc_out,
                    "stress_path": stress_out, "phase_seconds": phase_seconds, "seconds": time.time() - t_start},
                   f, indent=1)

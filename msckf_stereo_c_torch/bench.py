@@ -18,9 +18,12 @@ and on stderr the card's name and power limit, B, the frame count, lane
 Knobs are bench.py's environment variables, read the same way:
 ``BENCH_BATCH`` (16), ``BENCH_FRAMES`` (100), ``BENCH_REPS`` (3),
 ``BENCH_KLT_NORM``, ``BENCH_NOISE_ADAPTIVE``, ``BENCH_NS_ITERS`` (10) and
-the rest of bench.py's; a filter setting the port does not cover raises
-``NotImplementedError`` from ``models/msckf.py:check_supported``, nothing
-falls back.  Runs on the CUDA card; ``main(device="cpu")`` runs on
+the rest of bench.py's (``BENCH_FRONTEND_PRECISION`` and
+``BENCH_FILTER_PRECISION`` take every name, the bf16 ones included); a
+filter setting the port does not cover raises from
+``models/msckf.py:check_supported``, and ``BENCH_UNROLL``, which unrolls a
+``lax.scan`` the port does not have, raises ``NotImplementedError``;
+nothing falls back.  Runs on the CUDA card; ``main(device="cpu")`` runs on
 the CPU.
 """
 from __future__ import annotations

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .io.yaml_subset import read_yaml
+from .ops.precision import passes_of, products
 
 Vec3 = Tuple[float, float, float]
 Vec4 = Tuple[float, float, float, float]
@@ -42,27 +43,26 @@ def _check_matmul_precision(value: str) -> None:
 
 @contextlib.contextmanager
 def matmul_precision_scope(precision: str):
-    """Set torch's TF32 switches for matmuls AND cuDNN convolutions for the
-    scope, restoring the previous flags on exit.
+    """Set torch's TF32 switches for matmuls AND cuDNN convolutions, and the
+    bf16 pass count of the port's products, for the scope; the previous
+    state comes back on exit.
 
-    On the TPU, ``'tensorfloat32'`` means three bf16 passes, which is close
-    to f32; NVIDIA's TF32 keeps a 10-bit mantissa, far coarser.  And torch
-    runs f32 cuDNN convolutions (the correlation surfaces, on raw pixel
-    values) in TF32 by default.  So every precision name that asks for more
-    than one bf16 pass maps to full f32 here, and only ``'default'`` lets the
-    card use TF32.  Whether TF32 keeps the ATE is an open question, not
-    decided by this mapping.  The bf16 names have no counterpart and raise."""
+    The bf16 names keep their TPU meaning: ``'bfloat16'`` is one bf16 pass
+    per float32 product, ``'bfloat16_3x'`` three (``ops/precision.py``;
+    ``precision.active_passes()`` tells the kernels' wrappers and the
+    pyramids), with TF32 off.  On the TPU, ``'tensorfloat32'`` means three
+    bf16 passes too; NVIDIA's TF32 keeps a 10-bit mantissa, far coarser.
+    And torch runs f32 cuDNN convolutions in TF32 by default.  So
+    ``'tensorfloat32'``, ``'float32'`` and ``'highest'`` map to full f32
+    here, and only ``'default'`` lets the card use TF32."""
     _check_matmul_precision(precision)
-    if precision in ("bfloat16", "bfloat16_3x"):
-        raise NotImplementedError(
-            f"matmul_precision={precision!r} has no PyTorch counterpart in the port"
-        )
     allow = precision == "default"
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = allow
     torch.backends.cudnn.allow_tf32 = allow
     try:
-        yield
+        with products(passes_of(precision)):
+            yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 

@@ -45,6 +45,17 @@
 //     load.  Each cell sums its P*P taps in row-major order from zero, a
 //     fixed order.  Not tensor cores: they would be TF32, and the tracker
 //     runs in full f32.
+//   * Under the bf16 precision names (template PASSES, the wrapper's
+//     `passes`) the surface phase computes what the TPU's matrix unit
+//     computed for the depthwise convolution under the front end's
+//     precision scope: with one pass, each window value and tap is rounded
+//     to bf16 (round to nearest even) in shared memory once it has arrived,
+//     and the same FFMA loop runs; with three, hi = r(v) and lo = r(v - hi)
+//     of both are kept in shared memory and each tap is three FFMAs, small
+//     terms first (lo_g hi_w, hi_g lo_w, hi_g hi_w).  A product of two bf16
+//     values is exact in f32, so only the order of the sums differs from
+//     the plain version's.  PASSES = 0 is the f32 code above.  The LK loop
+//     is f32 in every mode: the Pallas loop body has no product.
 //   * The surfaces are stored interleaved as float2 (Cx, Cy), so each of a
 //     step's four taps is one 8-byte shared load.
 //   * One lane then runs K1's loop exactly as lk_corr_iterate.cu does (the
@@ -52,7 +63,9 @@
 //     from the start skips the window and the surfaces, unless `surf` asks
 //     for them.
 // Shared memory: S * pitch + 2 * P^2 floats and K^2 float2, 10.9 KB at
-// S=35, P=15; the wrapper refuses an (S, P) above 48 KB.
+// S=35, P=15 (the window and the taps twice with three passes: 18.3 KB);
+// the wrapper refuses an (S, P) above 48 KB.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,6 +91,24 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // register window of the last cell run stays inside its row.
 __host__ __device__ inline int window_pitch(int S) { return ((S + 3) | 3) + 1; }
 
+// r(v): v rounded to the nearest bf16 (ties to even) and back to f32.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The passes' operands in place: n floats at x rounded to bf16 (one pass),
+// or split into hi (at x) and lo (at lo) (three passes).
+template <int PASSES>
+__device__ __forceinline__ void split_passes(float* x, float* lo, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const float v = x[i];
+    const float h = bf16_round(v);
+    x[i] = h;
+    if constexpr (PASSES == 3) lo[i] = bf16_round(v - h);
+  }
+}
+
+template <int PASSES>
 __global__ void __launch_bounds__(kThreads)
 lk_corr_align_kernel(const float* __restrict__ img, const int32_t* __restrict__ origins,
                      const int32_t* __restrict__ img_index, const float* __restrict__ gx,
@@ -98,9 +129,12 @@ lk_corr_align_kernel(const float* __restrict__ img, const int32_t* __restrict__ 
   const int K = S - P + 1;
   const int PP = P * P;
   const int pitch = window_pitch(S);
+  constexpr int kCopies = PASSES == 3 ? 2 : 1;  // hi and lo with three passes
   float* win = reinterpret_cast<float*>(smem4);
-  float2* g2 = reinterpret_cast<float2*>(win + S * pitch);  // (gx, gy) taps
-  float2* cs = g2 + PP;                                     // (Cx, Cy) cells
+  float* win_lo = win + S * pitch;                                    // three passes
+  float2* g2 = reinterpret_cast<float2*>(win + kCopies * S * pitch);  // (gx, gy) taps
+  float2* g2_lo = g2 + PP;                                            // three passes
+  float2* cs = g2 + kCopies * PP;                                     // (Cx, Cy) cells
 
   const int ox = min(max(origins[2 * n], 0), W - S);
   const int oy = min(max(origins[2 * n + 1], 0), H - S);
@@ -132,6 +166,11 @@ lk_corr_align_kernel(const float* __restrict__ img, const int32_t* __restrict__ 
   }
   cp_async_wait_all();
   __syncthreads();
+  if constexpr (PASSES > 0) {
+    split_passes<PASSES>(win, win_lo, S * pitch);
+    split_passes<PASSES>(&g2[0].x, &g2_lo[0].x, 2 * PP);
+    __syncthreads();
+  }
 
   // Surfaces: thread t computes cells (y, x .. x+kTx-1) of both surfaces.
   const int groups = (K + kTx - 1) / kTx;
@@ -143,19 +182,37 @@ lk_corr_align_kernel(const float* __restrict__ img, const int32_t* __restrict__ 
     for (int k = 0; k < kTx; ++k) ax[k] = ay[k] = 0.0f;
     for (int i = 0; i < P; ++i) {
       const float* wr = win + (y + i) * pitch + c0 + x;
+      const float* wlr = win_lo + (y + i) * pitch + c0 + x;
       const float2* gr = g2 + i * P;
-      float w[kTx];
+      const float2* glr = g2_lo + i * P;
+      float w[kTx], wl[kTx];
 #pragma unroll
-      for (int k = 1; k < kTx; ++k) w[k] = wr[k - 1];
+      for (int k = 1; k < kTx; ++k) {
+        w[k] = wr[k - 1];
+        if constexpr (PASSES == 3) wl[k] = wlr[k - 1];
+      }
       for (int j = 0; j < P; ++j) {
 #pragma unroll
-        for (int k = 0; k + 1 < kTx; ++k) w[k] = w[k + 1];
+        for (int k = 0; k + 1 < kTx; ++k) {
+          w[k] = w[k + 1];
+          if constexpr (PASSES == 3) wl[k] = wl[k + 1];
+        }
         w[kTx - 1] = wr[j + kTx - 1];
         const float2 g = gr[j];
+        if constexpr (PASSES == 3) {
+          wl[kTx - 1] = wlr[j + kTx - 1];
+          const float2 gl = glr[j];
 #pragma unroll
-        for (int k = 0; k < kTx; ++k) {
-          ax[k] = fmaf(g.x, w[k], ax[k]);
-          ay[k] = fmaf(g.y, w[k], ay[k]);
+          for (int k = 0; k < kTx; ++k) {
+            ax[k] = fmaf(g.x, w[k], fmaf(g.x, wl[k], fmaf(gl.x, w[k], ax[k])));
+            ay[k] = fmaf(g.y, w[k], fmaf(g.y, wl[k], fmaf(gl.y, w[k], ay[k])));
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < kTx; ++k) {
+            ax[k] = fmaf(g.x, w[k], ax[k]);
+            ay[k] = fmaf(g.y, w[k], ay[k]);
+          }
         }
       }
     }
@@ -211,12 +268,18 @@ extern "C" int lk_corr_align(const void* img, const void* origins, const void* i
                              const void* gx, const void* gy, const void* sc, void* out,
                              void* surf, int n, int B, int H, int W, long long img_stride,
                              int S, int P, int iters, float eps, float hi, int vec,
-                             void* stream) {
+                             int passes, void* stream) {
+  if (passes != 0 && passes != 1 && passes != 3) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int K = S - P + 1;
-    const size_t smem = (size_t)(S * window_pitch(S)) * sizeof(float) +
-                        (size_t)(P * P + K * K) * sizeof(float2);
-    lk_corr_align_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(
+    const size_t copies = passes == 3 ? 2 : 1;
+    const size_t smem = copies * ((size_t)(S * window_pitch(S)) * sizeof(float) +
+                                  (size_t)(P * P) * sizeof(float2)) +
+                        (size_t)(K * K) * sizeof(float2);
+    auto kernel = passes == 0   ? lk_corr_align_kernel<0>
+                  : passes == 1 ? lk_corr_align_kernel<1>
+                                : lk_corr_align_kernel<3>;
+    kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(
         (const float*)img, (const int32_t*)origins, (const int32_t*)img_index,
         (const float*)gx, (const float*)gy, (const float*)sc, (float*)out, (float*)surf, B, H,
         W, img_stride, S, P, iters, eps, hi, vec);

@@ -46,6 +46,10 @@
 //     cell sums its P*P taps in row-major order from zero, the order in
 //     which cuDNN's depthwise kernel sums them.  Not tensor cores: they
 //     would be TF32, and the tracker runs in full f32.
+//   * The bf16 precision names (template PASSES) as in lk_corr_align.cu:
+//     window values and taps rounded to bf16 in shared memory (one pass),
+//     or kept as hi and lo with three FFMAs a tap, small terms first
+//     (three passes).  The loop is f32 in every mode.
 //   * The surfaces are stored interleaved as float4 (Cx, Cy, Ct, unused),
 //     so each of a step's four taps is one 16-byte shared load.
 //   * One lane then runs K3's loop exactly as lk_corr_iterate_gain.cu does
@@ -54,7 +58,9 @@
 //     surface.  A lane frozen from the start skips the window and the
 //     surfaces, unless `surf` asks for them.
 // Shared memory: S * pitch floats, P^2 and K^2 float4, 15.9 KB at S=35,
-// P=15; the wrapper refuses an (S, P) above 48 KB.
+// P=15 (the window and the taps twice with three passes: 25.5 KB); the
+// wrapper refuses an (S, P) above 48 KB.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,6 +85,23 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // multiple of 4 floats above S + 3.
 __host__ __device__ inline int window_pitch(int S) { return ((S + 3) | 3) + 1; }
 
+// r(v): v rounded to the nearest bf16 (ties to even) and back to f32.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The passes' operands in place, as in lk_corr_align.cu.
+template <int PASSES>
+__device__ __forceinline__ void split_passes(float* x, float* lo, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const float v = x[i];
+    const float h = bf16_round(v);
+    x[i] = h;
+    if constexpr (PASSES == 3) lo[i] = bf16_round(v - h);
+  }
+}
+
+template <int PASSES>
 __global__ void __launch_bounds__(kThreads)
 lk_corr_align_gain_kernel(const float* __restrict__ img, const int32_t* __restrict__ origins,
                           const int32_t* __restrict__ img_index, const float* __restrict__ gx,
@@ -100,9 +123,12 @@ lk_corr_align_gain_kernel(const float* __restrict__ img, const int32_t* __restri
   const int KK = K * K;
   const int PP = P * P;
   const int pitch = window_pitch(S);
+  constexpr int kCopies = PASSES == 3 ? 2 : 1;  // hi and lo with three passes
   float* win = reinterpret_cast<float*>(smem4);
-  float4* g4 = reinterpret_cast<float4*>(win + S * pitch);  // (gx, gy, gt, -) taps
-  float4* cs = g4 + PP;                                     // (Cx, Cy, Ct, -) cells
+  float* win_lo = win + S * pitch;                                    // three passes
+  float4* g4 = reinterpret_cast<float4*>(win + kCopies * S * pitch);  // (gx, gy, gt, -) taps
+  float4* g4_lo = g4 + PP;                                            // three passes
+  float4* cs = g4 + kCopies * PP;                                     // (Cx, Cy, Ct, -) cells
 
   const int ox = min(max(origins[2 * n], 0), W - S);
   const int oy = min(max(origins[2 * n + 1], 0), H - S);
@@ -136,6 +162,11 @@ lk_corr_align_gain_kernel(const float* __restrict__ img, const int32_t* __restri
   }
   cp_async_wait_all();
   __syncthreads();
+  if constexpr (PASSES > 0) {
+    split_passes<PASSES>(win, win_lo, S * pitch);
+    split_passes<PASSES>(&g4[0].x, &g4_lo[0].x, 4 * PP);
+    __syncthreads();
+  }
 
   // Surfaces: thread t computes cells (y, x .. x+kTx-1) of all three.
   const int groups = (K + kTx - 1) / kTx;
@@ -147,20 +178,39 @@ lk_corr_align_gain_kernel(const float* __restrict__ img, const int32_t* __restri
     for (int k = 0; k < kTx; ++k) ax[k] = ay[k] = at[k] = 0.0f;
     for (int i = 0; i < P; ++i) {
       const float* wr = win + (y + i) * pitch + c0 + x;
+      const float* wlr = win_lo + (y + i) * pitch + c0 + x;
       const float4* gr = g4 + i * P;
-      float w[kTx];
+      const float4* glr = g4_lo + i * P;
+      float w[kTx], wl[kTx];
 #pragma unroll
-      for (int k = 1; k < kTx; ++k) w[k] = wr[k - 1];
+      for (int k = 1; k < kTx; ++k) {
+        w[k] = wr[k - 1];
+        if constexpr (PASSES == 3) wl[k] = wlr[k - 1];
+      }
       for (int j = 0; j < P; ++j) {
 #pragma unroll
-        for (int k = 0; k + 1 < kTx; ++k) w[k] = w[k + 1];
+        for (int k = 0; k + 1 < kTx; ++k) {
+          w[k] = w[k + 1];
+          if constexpr (PASSES == 3) wl[k] = wl[k + 1];
+        }
         w[kTx - 1] = wr[j + kTx - 1];
         const float4 g = gr[j];
+        if constexpr (PASSES == 3) {
+          wl[kTx - 1] = wlr[j + kTx - 1];
+          const float4 gl = glr[j];
 #pragma unroll
-        for (int k = 0; k < kTx; ++k) {
-          ax[k] = fmaf(g.x, w[k], ax[k]);
-          ay[k] = fmaf(g.y, w[k], ay[k]);
-          at[k] = fmaf(g.z, w[k], at[k]);
+          for (int k = 0; k < kTx; ++k) {
+            ax[k] = fmaf(g.x, w[k], fmaf(g.x, wl[k], fmaf(gl.x, w[k], ax[k])));
+            ay[k] = fmaf(g.y, w[k], fmaf(g.y, wl[k], fmaf(gl.y, w[k], ay[k])));
+            at[k] = fmaf(g.z, w[k], fmaf(g.z, wl[k], fmaf(gl.z, w[k], at[k])));
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < kTx; ++k) {
+            ax[k] = fmaf(g.x, w[k], ax[k]);
+            ay[k] = fmaf(g.y, w[k], ay[k]);
+            at[k] = fmaf(g.z, w[k], at[k]);
+          }
         }
       }
     }
@@ -220,12 +270,18 @@ extern "C" int lk_corr_align_gain(const void* img, const void* origins, const vo
                                   const void* gx, const void* gy, const void* gt, const void* sc,
                                   void* out, void* surf, int n, int B, int H, int W,
                                   long long img_stride, int S, int P, int iters, float eps,
-                                  float hi, int vec, void* stream) {
+                                  float hi, int vec, int passes, void* stream) {
+  if (passes != 0 && passes != 1 && passes != 3) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int K = S - P + 1;
-    const size_t smem = (size_t)(S * window_pitch(S)) * sizeof(float) +
-                        (size_t)(P * P + K * K) * sizeof(float4);
-    lk_corr_align_gain_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(
+    const size_t copies = passes == 3 ? 2 : 1;
+    const size_t smem = copies * ((size_t)(S * window_pitch(S)) * sizeof(float) +
+                                  (size_t)(P * P) * sizeof(float4)) +
+                        (size_t)(K * K) * sizeof(float4);
+    auto kernel = passes == 0   ? lk_corr_align_gain_kernel<0>
+                  : passes == 1 ? lk_corr_align_gain_kernel<1>
+                                : lk_corr_align_gain_kernel<3>;
+    kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(
         (const float*)img, (const int32_t*)origins, (const int32_t*)img_index,
         (const float*)gx, (const float*)gy, (const float*)gt, (const float*)sc, (float*)out,
         (float*)surf, B, H, W, img_stride, S, P, iters, eps, hi, vec);

@@ -37,6 +37,15 @@
 // q)), so the template quantities computed from it downstream sum in the
 // same order.  The (Sb, Sb) block in device memory, the two (q, Sb) weight
 // matrices and the two GEMMs are gone.
+//
+// Under the bf16 precision names (template PASSES, the wrapper's `passes`)
+// the blend's operands are what the passes see of them, as in the JAX
+// package's _sample with its bf16 compute dtype: each pixel as it is read
+// into shared memory and each tent weight as it is computed becomes r(v)
+// (one pass) or hi + lo (three passes, exact in f32), r rounding to the
+// nearest bf16; the products and the intermediate row blend stay f32.  The
+// tent weights 1 - frac are not exact in bf16.  PASSES = 0 is the f32 code.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,16 +59,30 @@ struct Tent {
   float w0, w1;
 };
 
+// v as the passes see it: v (none), r(v) (one), r(v) + r(v - r(v)) (three).
+template <int PASSES>
+__device__ __forceinline__ float passes_operand(float v) {
+  if constexpr (PASSES == 0) {
+    return v;
+  } else {
+    const float h = __bfloat162float(__float2bfloat16_rn(v));
+    if constexpr (PASSES == 1) return h;
+    return h + __bfloat162float(__float2bfloat16_rn(v - h));
+  }
+}
+
+template <int PASSES>
 __device__ __forceinline__ Tent tent(float a, int a0, int i) {
   const float t = __fadd_rn(a, (float)i);
   const float f = floorf(t);
   Tent r;
   r.j = (int)f - a0;  // in {i, i + 1}
-  r.w0 = fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(f, t))), 0.0f);
-  r.w1 = fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(__fadd_rn(f, 1.0f), t))), 0.0f);
+  r.w0 = passes_operand<PASSES>(fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(f, t))), 0.0f));
+  r.w1 = passes_operand<PASSES>(fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(__fadd_rn(f, 1.0f), t))), 0.0f));
   return r;
 }
 
+template <int PASSES>
 __global__ void __launch_bounds__(kThreads)
 resample_template_kernel(const float* __restrict__ img, const float* __restrict__ pts,
                          const int32_t* __restrict__ origins,
@@ -85,7 +108,7 @@ resample_template_kernel(const float* __restrict__ img, const float* __restrict_
   for (int i = threadIdx.x; i < T * T; i += kThreads) {
     const int r = i / T;
     const int c = i - r * T;
-    win[i] = src[(long long)r * W + c];
+    win[i] = passes_operand<PASSES>(src[(long long)r * W + c]);
   }
   __syncthreads();
 
@@ -93,8 +116,8 @@ resample_template_kernel(const float* __restrict__ img, const float* __restrict_
   for (int i = threadIdx.x; i < q * q; i += kThreads) {
     const int c = i / q;
     const int r = i - c * q;
-    const Tent ty = tent(oby, iy, r);
-    const Tent tx = tent(obx, ix, c);
+    const Tent ty = tent<PASSES>(oby, iy, r);
+    const Tent tx = tent<PASSES>(obx, ix, c);
     // Where a + i rounds up to an integer, the second weight is 0 and its
     // row (or column) may lie one past the window: read the last one.
     const float* r0 = win + ty.j * T;
@@ -108,10 +131,14 @@ resample_template_kernel(const float* __restrict__ img, const float* __restrict_
 
 extern "C" int resample_template(const void* img, const void* pts, const void* origins,
                                  const void* img_index, void* out, int n, int B, int H, int W,
-                                 long long img_stride, int Sb, int P, void* stream) {
+                                 long long img_stride, int Sb, int P, int passes, void* stream) {
+  if (passes != 0 && passes != 1 && passes != 3) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const size_t smem = (size_t)(P + 3) * (P + 3) * sizeof(float);
-    resample_template_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(
+    auto kernel = passes == 0   ? resample_template_kernel<0>
+                  : passes == 1 ? resample_template_kernel<1>
+                                : resample_template_kernel<3>;
+    kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(
         (const float*)img, (const float*)pts, (const int32_t*)origins, (const int32_t*)img_index,
         (float*)out, B, H, W, img_stride, Sb, P);
   }

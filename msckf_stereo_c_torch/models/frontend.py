@@ -30,6 +30,7 @@ import torch
 
 from ..config import FrontendConfig, StereoCalib, matmul_precision_scope
 from ..ops.camera import distort_points, undistort_points
+from ..ops import precision
 from ..ops import ransac as _ransac
 from ..ops.fast import detect_grid_corners, occupancy_from_points
 from ..ops.klt import optical_flow_pyr_lk
@@ -504,14 +505,19 @@ def batched_frontend_step(
 
 def _mat3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """A @ B for (..., 3, 3) matrices as elementwise products and sums, so
-    never in TF32."""
+    never in TF32; under a bf16 name the product of the passes, as JAX's
+    dot there."""
+    passes = precision.active_passes()
+    if passes:
+        return precision.matmul(A, B, passes)
     return torch.sum(A[..., :, :, None] * B[..., None, :, :], dim=-2)
 
 
 def _rotation_warp(pts: torch.Tensor, K: torch.Tensor, R_p_c: torch.Tensor) -> torch.Tensor:
     """The IMU-predicted homography K R_p_c K^-1 applied to pixel points
     (B, N, 2) (the reference's rotation-only predictFeatureTracking), in
-    elementwise float arithmetic."""
+    elementwise float arithmetic, or under a bf16 name in the passes'
+    products (JAX's dots)."""
     fx, fy, cx, cy = K[0], K[1], K[2], K[3]
     zero, one = torch.zeros_like(fx), torch.ones_like(fx)
     Km = torch.stack([torch.stack([fx, zero, cx]), torch.stack([zero, fy, cy]), torch.stack([zero, zero, one])])
@@ -520,7 +526,11 @@ def _rotation_warp(pts: torch.Tensor, K: torch.Tensor, R_p_c: torch.Tensor) -> t
     ])
     Hm = _mat3(_mat3(Km.to(pts.dtype), R_p_c), Kinv.to(pts.dtype))  # (B, 3, 3)
     ph = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
-    warped = torch.sum(ph[..., None, :] * Hm[:, None, :, :], dim=-1)
+    passes = precision.active_passes()
+    if passes:
+        warped = precision.matmul(ph, Hm.transpose(-1, -2), passes)
+    else:
+        warped = torch.sum(ph[..., None, :] * Hm[:, None, :, :], dim=-1)
     return warped[..., :2] / warped[..., 2:3]
 
 

@@ -84,16 +84,13 @@ class PoseOutput(NamedTuple):
 
 def check_supported(cfg: FilterConfig, method: str) -> None:
     """Raise for a filter configuration the port does not run: an unknown
-    method or a negative ``ns_iters`` (ValueError), a precision name with
-    no PyTorch counterpart (NotImplementedError)."""
+    method or a negative ``ns_iters`` (ValueError).  Every precision name
+    runs: the bf16 names as one or three bf16 passes per float32 product
+    (``ops/precision.py``)."""
     if method not in METHODS:
         raise ValueError(f"unknown filter method {method!r}; expected one of {METHODS}")
     if cfg.ns_iters < 0:
         raise ValueError(f"ns_iters={cfg.ns_iters} must be >= 0 (0 = exact factorizations)")
-    if cfg.matmul_precision in ("bfloat16", "bfloat16_3x"):
-        raise NotImplementedError(
-            f"matmul_precision={cfg.matmul_precision!r} has no PyTorch counterpart in the port"
-        )
 
 
 def make_params(cfg: FilterConfig, calib: StereoCalib, dtype=torch.float64, device=None) -> MsckfParams:

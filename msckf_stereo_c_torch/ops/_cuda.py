@@ -39,14 +39,14 @@ _SIGNATURES = {
     ),
     "lk_corr_align": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _I,
-        ctypes.c_float, ctypes.c_float, _I, _P,
+        ctypes.c_float, ctypes.c_float, _I, _I, _P,
     ),
     "extract_template": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _P),
     "lk_corr_align_gain": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _I,
-        ctypes.c_float, ctypes.c_float, _I, _P,
+        ctypes.c_float, ctypes.c_float, _I, _I, _P,
     ),
-    "resample_template": (_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _P),
+    "resample_template": (_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _I, _P),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

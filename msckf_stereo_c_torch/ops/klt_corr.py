@@ -27,6 +27,15 @@ the paths that launch them:
   ``patch_extract.extract_windows`` (K2): the loops alone on precomputed
   surfaces and the window copy; no path launches them any more.
 
+Under a bf16 precision name (``precision.active_passes()``, or a wrapper's
+``passes``) the three precision-governed kernels compute what the TPU's
+matrix unit computed under the front end's scope: the correlation surfaces
+of ``lk_corr_align`` and ``lk_corr_align_gain`` in one or three bf16 passes
+(their LK loops stay float32: the Pallas loop has no product), and the tent
+blend of ``resample_template`` on rounded weights and pixels.
+``extract_template`` is untouched: the TPU built templates from four
+elementwise bilinear slices.
+
 Templates always come from the (P+3) window plus four bilinear terms, the
 formula the TPU ran; the template carried from the stereo call into the
 next temporal call depends on one formula for both.
@@ -44,7 +53,7 @@ from typing import NamedTuple, Sequence
 import torch
 import torch.nn.functional as F
 
-from . import _cuda
+from . import _cuda, precision
 from .patch_extract import extract_windows_reference, image_index_ptr, image_stack, lane_images
 
 # Search radius beyond the window per level (klt_gemm.py:_SEARCH_RADIUS).
@@ -80,16 +89,19 @@ def _sample(Wy: torch.Tensor, patch: torch.Tensor, Wx: torch.Tensor) -> torch.Te
     return torch.einsum("nij,njk,nlk->nil", Wy, patch, Wx)
 
 
-def _corr_surfaces(spatch: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor, P: int, extra=()):
+def _corr_surfaces(spatch: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor, P: int, extra=(), passes: int = 0):
     """(N, K, K) cross-correlations of gx, gy and the ``extra`` per-feature
     filters with each search window, as one depthwise convolution (features
-    = channels, F filters each).  Returns F strided views into one
-    (N, F, K, K) result."""
+    = channels, F filters each), in ``passes`` bf16 passes (0: float32).
+    Returns F strided views into one (N, F, K, K) result."""
     N, S, _ = spatch.shape
     filters = (gx, gy) + tuple(extra)
     nf = len(filters)
     weight = torch.stack(filters, dim=1).reshape(nf * N, 1, P, P)
-    out = F.conv2d(spatch[None], weight, groups=N)  # (1, F*N, K, K)
+    if passes:
+        out = precision.conv2d(spatch[None], weight, groups=N, passes=passes)
+    else:
+        out = F.conv2d(spatch[None], weight, groups=N)  # (1, F*N, K, K)
     K = S - P + 1
     out = out.reshape(N, nf, K, K)
     return tuple(out[:, i] for i in range(nf))
@@ -208,6 +220,7 @@ def _centred_filters(tq: TemplateQ, P: int):
     return tq.gx - (tq.sgx / n)[:, None, None], tq.gy - (tq.sgy / n)[:, None, None]
 
 
+@precision.exact
 def lk_corr_iterate_reference(
     sc: torch.Tensor, Cx: torch.Tensor, Cy: torch.Tensor, iters: int, eps: float, hi: float
 ) -> torch.Tensor:
@@ -296,6 +309,7 @@ def lk_corr_iterate(
     return _launch_lk("lk_corr_iterate", lk_corr_iterate_reference, sc, (Cx, Cy), iters, eps, hi)
 
 
+@precision.exact
 def lk_corr_iterate_gain_reference(
     sc: torch.Tensor, Cx: torch.Tensor, Cy: torch.Tensor, Ct: torch.Tensor,
     iters: int, eps: float, hi: float,
@@ -347,53 +361,60 @@ def lk_corr_iterate_gain(
     )
 
 
-def _align_smem_bytes(S: int, P: int, nf: int = 2) -> int:
+def _align_smem_bytes(S: int, P: int, nf: int = 2, passes: int = 0) -> int:
     """Shared memory of one ``lk_corr_align`` (``nf`` = 2 filters) or
     ``lk_corr_align_gain`` (3) block: the window at a row pitch of the least
     multiple of 4 above S + 3 floats (``window_pitch`` in both sources), the
     taps of the filters and the cells of the surfaces, interleaved as float2
-    or float4."""
+    or float4.  Three bf16 passes keep the window and the taps twice (hi
+    and lo)."""
     K = S - P + 1
-    return 4 * S * (((S + 3) | 3) + 1) + (8 if nf == 2 else 16) * (P * P + K * K)
+    copies = 2 if passes == 3 else 1
+    return copies * (4 * S * (((S + 3) | 3) + 1) + (8 if nf == 2 else 16) * P * P) + (8 if nf == 2 else 16) * K * K
 
 
+@precision.exact
 def lk_corr_align_reference(
     img: torch.Tensor, origins: torch.Tensor, S: int, gx: torch.Tensor, gy: torch.Tensor,
     sc: torch.Tensor, iters: int, eps: float, hi: float,
-    img_index: torch.Tensor | None = None, surfaces_out: torch.Tensor | None = None,
+    img_index: torch.Tensor | None = None, surfaces_out: torch.Tensor | None = None, passes: int = 0,
 ) -> torch.Tensor:
     """Plain version of ``lk_corr_align``: the composition it replaces,
-    ``extract_windows_reference`` -> ``_corr_surfaces`` ->
-    ``lk_corr_iterate_reference``."""
+    ``extract_windows_reference`` -> ``_corr_surfaces`` (in ``passes``
+    bf16 passes) -> ``lk_corr_iterate_reference`` (float32 in every mode:
+    the loop has no product)."""
     P = gx.shape[-1]
     spatch = extract_windows_reference(img, origins, S, img_index)
-    Cx, Cy = _corr_surfaces(spatch, gx, gy, P)
+    Cx, Cy = _corr_surfaces(spatch, gx, gy, P, passes=passes)
     if surfaces_out is not None:
         surfaces_out.copy_(torch.stack([Cx, Cy], dim=1))
     return lk_corr_iterate_reference(sc, Cx, Cy, iters, eps, hi)
 
 
+@precision.exact
 def lk_corr_align_gain_reference(
     img: torch.Tensor, origins: torch.Tensor, S: int, gx: torch.Tensor, gy: torch.Tensor,
     gt: torch.Tensor, sc: torch.Tensor, iters: int, eps: float, hi: float,
-    img_index: torch.Tensor | None = None, surfaces_out: torch.Tensor | None = None,
+    img_index: torch.Tensor | None = None, surfaces_out: torch.Tensor | None = None, passes: int = 0,
 ) -> torch.Tensor:
     """Plain version of ``lk_corr_align_gain``: the composition it replaces,
     ``extract_windows_reference`` -> ``_corr_surfaces`` with a third filter
-    -> ``lk_corr_iterate_gain_reference``."""
+    (in ``passes`` bf16 passes) -> ``lk_corr_iterate_gain_reference``."""
     P = gx.shape[-1]
     spatch = extract_windows_reference(img, origins, S, img_index)
-    Cx, Cy, Ct = _corr_surfaces(spatch, gx, gy, P, extra=(gt,))
+    Cx, Cy, Ct = _corr_surfaces(spatch, gx, gy, P, extra=(gt,), passes=passes)
     if surfaces_out is not None:
         surfaces_out.copy_(torch.stack([Cx, Cy, Ct], dim=1))
     return lk_corr_iterate_gain_reference(sc, Cx, Cy, Ct, iters, eps, hi)
 
 
-def _launch_align(name, reference, img, origins, S, filters, sc, iters, eps, hi, img_index, surfaces_out):
+def _launch_align(name, reference, img, origins, S, filters, sc, iters, eps, hi, img_index, surfaces_out, passes):
     """Shared wrapper of ``lk_corr_align`` (two filters, sc (N, 8)) and
     ``lk_corr_align_gain`` (three, sc (N, 12)): checks the inputs, sends CPU
     tensors to ``reference`` and launches the kernel ``name`` on CUDA
-    tensors (or raises)."""
+    tensors (or raises).  ``passes`` None takes the scope's pass count."""
+    passes = precision.active_passes() if passes is None else passes
+    precision.check_passes(passes)
     imgs = image_stack(img)
     B, H, W = imgs.shape
     N = origins.shape[0]
@@ -408,7 +429,7 @@ def _launch_align(name, reference, img, origins, S, filters, sc, iters, eps, hi,
         raise ValueError(f"{name}: window {S} must exceed P={P} and fit a {H}x{W} image")
     if not 0.0 <= hi <= K - 2:
         raise ValueError(f"hi={hi} must lie in [0, K-2] so all four taps stay in range")
-    if _align_smem_bytes(S, P, nf) > 48 * 1024:
+    if _align_smem_bytes(S, P, nf, passes) > 48 * 1024:
         raise ValueError(f"{name}: S={S}, P={P} need more than 48 KB of shared memory")
     if img_index is None and B != 1:
         raise ValueError("a (B, H, W) stack with B > 1 needs img_index")
@@ -417,7 +438,7 @@ def _launch_align(name, reference, img, origins, S, filters, sc, iters, eps, hi,
     if N == 0:  # the kernel launches nothing for it, so nothing is counted
         return torch.empty((0, 2), dtype=sc.dtype, device=sc.device)
     if imgs.device.type == "cpu":
-        return reference(imgs, origins, S, *filters, sc, iters, eps, hi, img_index, surfaces_out)
+        return reference(imgs, origins, S, *filters, sc, iters, eps, hi, img_index, surfaces_out, passes)
     if imgs.device.type != "cuda":
         raise ValueError(f"unsupported device {imgs.device}")
     tensors = (imgs, *filters, sc) + (() if surfaces_out is None else (surfaces_out,))
@@ -439,7 +460,7 @@ def _launch_align(name, reference, img, origins, S, filters, sc, iters, eps, hi,
         imgs.data_ptr(), origins.data_ptr(), image_index_ptr(img_index, N, imgs),
         *(g.data_ptr() for g in filters), sc.data_ptr(), out.data_ptr(),
         None if surfaces_out is None else surfaces_out.data_ptr(),
-        N, B, H, W, H * W, S, P, int(iters), float(eps), float(hi), vec,
+        N, B, H, W, H * W, S, P, int(iters), float(eps), float(hi), vec, passes,
         torch.cuda.current_stream(imgs.device).cuda_stream,
     )
     _cuda.check_launch(name, rc)
@@ -450,7 +471,7 @@ def _launch_align(name, reference, img, origins, S, filters, sc, iters, eps, hi,
 def lk_corr_align(
     img: torch.Tensor, origins: torch.Tensor, S: int, gx: torch.Tensor, gy: torch.Tensor,
     sc: torch.Tensor, iters: int, eps: float, hi: float,
-    img_index: torch.Tensor | None = None, surfaces_out: torch.Tensor | None = None,
+    img_index: torch.Tensor | None = None, surfaces_out: torch.Tensor | None = None, passes: int | None = None,
 ) -> torch.Tensor:
     """One two-surface LK problem per feature in one launch: the (S, S)
     search window at int32 ``origins`` (N, 2) [x, y] of ``img`` ((H, W), or
@@ -458,24 +479,26 @@ def lk_corr_align(
     the filters ``gx``, ``gy`` (N, P, P), and up to ``iters`` LK steps from
     sc (N, 8) in K1's layout.  Returns the final window-origin coordinates
     f (N, 2), each clamped to [0, hi]; ``surfaces_out`` (N, 2, K, K), when
-    given, receives the surfaces."""
+    given, receives the surfaces.  The surfaces take ``passes`` bf16
+    passes (None: the scope's, ``precision.active_passes()``); the loop
+    is float32."""
     return _launch_align("lk_corr_align", lk_corr_align_reference, img, origins, S, (gx, gy), sc,
-                         iters, eps, hi, img_index, surfaces_out)
+                         iters, eps, hi, img_index, surfaces_out, passes)
 
 
 def lk_corr_align_gain(
     img: torch.Tensor, origins: torch.Tensor, S: int, gx: torch.Tensor, gy: torch.Tensor,
     gt: torch.Tensor, sc: torch.Tensor, iters: int, eps: float, hi: float,
-    img_index: torch.Tensor | None = None, surfaces_out: torch.Tensor | None = None,
+    img_index: torch.Tensor | None = None, surfaces_out: torch.Tensor | None = None, passes: int | None = None,
 ) -> torch.Tensor:
     """One three-surface LK problem per feature in one launch: as
     ``lk_corr_align``, with a third filter ``gt`` (N, P, P) (ones for
     'offset', the zero-mean template for 'gain') and up to ``iters``
     affine-photometric steps from sc (N, 12) in K3's layout.  Returns f
     (N, 2), each clamped to [0, hi]; ``surfaces_out`` (N, 3, K, K), when
-    given, receives the surfaces."""
+    given, receives the surfaces; ``passes`` as for ``lk_corr_align``."""
     return _launch_align("lk_corr_align_gain", lk_corr_align_gain_reference, img, origins, S, (gx, gy, gt),
-                         sc, iters, eps, hi, img_index, surfaces_out)
+                         sc, iters, eps, hi, img_index, surfaces_out, passes)
 
 
 def _k1_sc(tq: TemplateQ, f0, conv0) -> torch.Tensor:
@@ -587,19 +610,27 @@ def extract_template(
     return out
 
 
-def resample_template_reference(img, pts, origins, Sb, P, img_index=None):
+@precision.exact
+def resample_template_reference(img, pts, origins, Sb, P, img_index=None, passes=0):
     """Plain version of ``resample_template``: the expression it replaces,
     the (Sb, Sb) block by ``extract_windows_reference`` and the tent-weight
-    ``einsum``."""
+    ``einsum``.  Under ``passes`` bf16 passes its three operands (the two
+    weight matrices and the pixels) are rounded as the passes see them
+    (``precision.operand``) and the einsum runs in float32, the
+    intermediate product unrounded: the JAX package's ``_sample`` under its
+    bf16 compute dtype (``msckf_stereo_c_tpu/ops/klt_gemm.py:48-56``)."""
     q = P + 2
     ob = torch.clamp(pts - (P + 1) / 2.0 - origins.to(pts.dtype), 0.0, Sb - (P + 3.0))
     block = extract_windows_reference(img, origins, Sb, img_index)
-    return _sample(_tent_weights(ob[:, 1], q, Sb), block, _tent_weights(ob[:, 0], q, Sb))
+    Wy, Wx = _tent_weights(ob[:, 1], q, Sb), _tent_weights(ob[:, 0], q, Sb)
+    if passes:
+        Wy, block, Wx = (precision.operand(x, passes) for x in (Wy, block, Wx))
+    return _sample(Wy, block, Wx)
 
 
 def resample_template(
     img: torch.Tensor, pts: torch.Tensor, origins: torch.Tensor, Sb: int, P: int,
-    img_index: torch.Tensor | None = None,
+    img_index: torch.Tensor | None = None, passes: int | None = None,
 ) -> torch.Tensor:
     """(N, P+2, P+2) template super-patches at float32 points ``pts``
     (N, 2) [x, y] resampled from the (Sb, Sb) blocks at int32 ``origins``
@@ -609,7 +640,10 @@ def resample_template(
     only the (P+3) window of the block that the weights touch, and returns
     the layout the plain version's einsum returns (each template stored
     transposed), so that reductions over the templates sum in the same
-    order on both."""
+    order on both.  The weights and pixels take ``passes`` bf16 passes
+    (None: the scope's)."""
+    passes = precision.active_passes() if passes is None else passes
+    precision.check_passes(passes)
     imgs = image_stack(img)
     B, H, W = imgs.shape
     N = pts.shape[0]
@@ -622,7 +656,7 @@ def resample_template(
     if N == 0:  # the kernel launches nothing for it, so nothing is counted
         return torch.empty((0, P + 2, P + 2), dtype=imgs.dtype, device=imgs.device)
     if imgs.device.type == "cpu":
-        return resample_template_reference(imgs, pts, origins, Sb, P, img_index)
+        return resample_template_reference(imgs, pts, origins, Sb, P, img_index, passes)
     if imgs.device.type != "cuda":
         raise ValueError(f"unsupported device {imgs.device}")
     if imgs.dtype != torch.float32 or pts.dtype != torch.float32 or origins.dtype != torch.int32:
@@ -636,7 +670,7 @@ def resample_template(
     fn = _cuda.kernel_function("resample_template")
     rc = fn(
         imgs.data_ptr(), pts.data_ptr(), origins.data_ptr(), image_index_ptr(img_index, N, imgs),
-        out.data_ptr(), N, B, H, W, H * W, Sb, P, torch.cuda.current_stream(imgs.device).cuda_stream,
+        out.data_ptr(), N, B, H, W, H * W, Sb, P, passes, torch.cuda.current_stream(imgs.device).cuda_stream,
     )
     _cuda.check_launch("resample_template", rc)
     _cuda.launch_counts["resample_template"] += 1

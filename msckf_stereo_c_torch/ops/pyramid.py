@@ -7,13 +7,22 @@ as a dense banded GEMM because the TPU's matrix unit favours it; here each
 pass is five shifted adds over a reflect-padded view (``F.pad`` mode
 ``"reflect"`` is REFLECT_101).  The values agree to f32 rounding.  Images
 may carry leading axes ((..., H, W), one lane per sequence); each image is
-filtered on its own."""
+filtered on its own.
+
+Under a bf16 precision name (``precision.active_passes()``, the front
+end's scope) the operand of each separable pass is rounded as the bf16
+passes see it, as the TPU's two GEMMs round theirs: the image before the
+row pass, the row-filtered image before the column pass.  The weights 1, 4,
+6, 4, 1 over 16 are exact in bf16, and so is an 8-bit image: only the
+presmoothed and coarser levels move."""
 from __future__ import annotations
 
 from typing import List
 
 import torch
 import torch.nn.functional as F
+
+from . import precision
 
 
 def _blur_rows(p: torch.Tensor, n: int, step: int) -> torch.Tensor:
@@ -25,9 +34,11 @@ def _blur_rows(p: torch.Tensor, n: int, step: int) -> torch.Tensor:
 
 def _blur2d(img: torch.Tensor, step: int) -> torch.Tensor:
     lead, (H, W) = img.shape[:-2], img.shape[-2:]
-    x = F.pad(img.reshape(-1, 1, H, W), (0, 0, 2, 2), mode="reflect")
+    passes = precision.active_passes()
+    x = precision.operand(img.reshape(-1, 1, H, W), passes)
+    x = F.pad(x, (0, 0, 2, 2), mode="reflect")
     x = _blur_rows(x, H, step)
-    x = F.pad(x, (2, 2, 0, 0), mode="reflect")
+    x = F.pad(precision.operand(x, passes), (2, 2, 0, 0), mode="reflect")
     x = _blur_rows(x.transpose(-1, -2), W, step).transpose(-1, -2)
     return x.reshape(lead + x.shape[-2:])
 

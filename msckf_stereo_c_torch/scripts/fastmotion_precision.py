@@ -15,8 +15,9 @@ Each argument is ``<filter precision>`` or ``<filter>/<frontend>``; the
 front end's defaults to ``'default'`` and the arguments to ``float32
 tensorfloat32``, as in the JAX script.  The names are the port's
 (``config.matmul_precision_scope``): only ``'default'`` lets the card use
-TF32, and ``'bfloat16'`` / ``'bfloat16_3x'`` raise ``NotImplementedError``
-before any frame runs.  Runs on the CUDA card; ``FM_PLATFORM=cpu`` selects
+TF32, and ``'bfloat16'`` / ``'bfloat16_3x'`` are one and three bf16 passes
+per float32 product, the TPU's meaning (``ops/precision.py``); every spec
+is checked before any frame runs.  Runs on the CUDA card; ``FM_PLATFORM=cpu`` selects
 the CPU.  The scene is rendered by ``sim/render_torch.py`` on the run's
 device.
 """
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from ..bench import Scene
-from ..config import EUROC_CALIB, FilterConfig, FrontendConfig, matmul_precision_scope, resolve_device
+from ..config import EUROC_CALIB, FilterConfig, FrontendConfig, resolve_device
 from ..io.tum import evaluate_ate
 from ..models import msckf as _msckf
 from ..models.vio import run_vio_sequence
@@ -56,16 +57,13 @@ def fastmotion_scene(duration: float = 6.0, device=None) -> Scene:
 
 def spec_configs(spec: str):
     """(FrontendConfig, FilterConfig) of one ``filter[/frontend]`` spec;
-    raises for a name the port does not run."""
+    raises ``ValueError`` for an unknown name."""
     filt_prec, _, front_prec = spec.partition("/")
     front_prec = front_prec or "default"
     fcfg = FrontendConfig(max_features=64, matmul_precision=front_prec)
     mcfg = FilterConfig(
         max_cam_state_size=8, max_tracks=80, max_imu_per_frame=12, ns_iters=10, matmul_precision=filt_prec
     )
-    for prec in (front_prec, filt_prec):
-        with matmul_precision_scope(prec):  # the port's own check of the name
-            pass
     _msckf.check_supported(mcfg, "schur")
     return fcfg, mcfg
 

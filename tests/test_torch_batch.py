@@ -275,11 +275,15 @@ def test_bench_main_prints_the_headline_line(monkeypatch, capsys):
 @pytest.mark.parametrize("env", [dict(BENCH_FILTER_PRECISION="bfloat16"), dict(BENCH_TEMPORAL_LEVELS="2"),
                                  dict(BENCH_KLT="gather"), dict(BENCH_UNROLL="2")])
 def test_bench_unsupported_knobs_raise(monkeypatch, env):
-    """The filter's bf16 names and BENCH_UNROLL raise; the front-end knobs
-    the port once rejected (two temporal levels, the gather LK) now give
-    their configuration."""
+    """BENCH_UNROLL raises; the knobs the port once rejected (the filter's
+    bf16 names, two temporal levels, the gather LK) now give their
+    configuration."""
     for name, value in env.items():
         monkeypatch.setenv(name, value)
+    if "BENCH_FILTER_PRECISION" in env:
+        _, mcfg, method = tbench.bench_configs()
+        assert (mcfg.matmul_precision, mcfg.ns_iters, method) == ("bfloat16", 10, "schur")
+        return
     if "BENCH_TEMPORAL_LEVELS" in env or "BENCH_KLT" in env:
         fcfg, _, _ = tbench.bench_configs()
         assert (fcfg.temporal_levels, fcfg.klt_impl) == (int(env.get("BENCH_TEMPORAL_LEVELS", 1)),

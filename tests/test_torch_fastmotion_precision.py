@@ -1,7 +1,8 @@
 """The fast-motion precision script of the port
 (``msckf_stereo_c_torch/scripts/fastmotion_precision.py``) on the CPU: its
 ``filter[/frontend]`` specs with the JAX script's defaults, the bf16 names
-refused before any frame runs, and one spec over a 2 s cut of the scene
+parsed and run (over a 0.3 s cut of the scene, rendered once), and one
+spec over a 2 s cut of the scene
 equal to a direct ``run_vio_sequence`` call with the same configurations
 (ATE to the printed digit, min tracks exact)."""
 import numpy as np
@@ -26,14 +27,26 @@ def test_spec_parser():
         fmp.spec_configs("float16")
 
 
-@pytest.mark.parametrize("spec", ["bfloat16", "float32/bfloat16_3x", "default/bfloat16"])
-def test_bf16_names_raise_before_any_frame(spec, monkeypatch):
-    def no_scene(*args, **kwargs):
-        raise AssertionError("the scene was built before the specs were checked")
+@pytest.fixture(scope="module")
+def short_scene():
+    return fmp.fastmotion_scene(duration=0.3, device="cpu")
 
-    monkeypatch.setattr(fmp, "fastmotion_scene", no_scene)
-    with pytest.raises(NotImplementedError, match="no PyTorch counterpart"):
-        fmp.main(["float32", spec], env={"FM_PLATFORM": "cpu"})
+
+@pytest.mark.parametrize("spec", ["bfloat16", "float32/bfloat16_3x", "default/bfloat16"])
+def test_bf16_names_raise_before_any_frame(spec, short_scene, monkeypatch):
+    """The bf16 names, which once raised here, parse into their
+    configurations and run on the CPU (a stub scene: the first 0.3 s)."""
+    monkeypatch.setattr(fmp, "fastmotion_scene", lambda *a, **k: short_scene)
+    filt, _, front = spec.partition("/")
+    fcfg, mcfg = fmp.spec_configs(spec)
+    assert (mcfg.matmul_precision, fcfg.matmul_precision) == (filt, front or "default")
+    out = fmp.main(["float32", spec], env={"FM_PLATFORM": "cpu"})
+    assert list(out) == ["float32", spec]
+    got = out[spec]
+    assert (got["filter"], got["frontend"]) == (filt, front or "default")
+    assert np.isfinite(got["ate_rmse"]) and got["min_tracks_last20"] > 0
+    with pytest.raises(ValueError):
+        fmp.spec_configs(spec.replace("bfloat16", "bfloat8"))
 
 
 def test_main_needs_the_card_unless_told(monkeypatch):

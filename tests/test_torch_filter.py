@@ -190,8 +190,8 @@ def test_filter_step_noise_adaptive(world):
 
 def test_unsupported_filter_options_raise():
     """Every method runs with exact (ns_iters=0) and Newton-Schulz solves;
-    an unknown method or a negative ns_iters is refused, and the bf16
-    precision names, which have no PyTorch counterpart, raise."""
+    an unknown method or a negative ns_iters is refused; the bf16 precision
+    names (one and three bf16 passes a product) are accepted."""
     for method in ("qr", "cholesky", "schur"):
         for ns in (0, 10):
             tmsckf.check_supported(TFilterConfig(**{**KW, "ns_iters": ns}), method)
@@ -199,5 +199,5 @@ def test_unsupported_filter_options_raise():
         with pytest.raises(ValueError):
             tmsckf.check_supported(TFilterConfig(**{**KW, **kw}), method)
     for name in ("bfloat16", "bfloat16_3x"):
-        with pytest.raises(NotImplementedError):
-            tmsckf.check_supported(TFilterConfig(**{**KW, "matmul_precision": name}), "qr")
+        for method in ("qr", "schur"):
+            tmsckf.check_supported(TFilterConfig(**{**KW, "matmul_precision": name}), method)

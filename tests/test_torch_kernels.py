@@ -420,6 +420,73 @@ def test_resample_template_kernel_image_index(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("N,H,W", [(144, 480, 752), (48, 60, 94)])
+def test_lk_corr_align_kernel_passes_match_plain(cuda_device, N, H, W, passes):
+    """The bf16 passes of the surface phase: surfaces within 1e-5 x max|C|
+    of the plain version's (its bf16 GEMMs of the unfolded windows); valid
+    lanes within 2 * eps of the plain loop run on the kernel's own
+    surfaces (the GEMMs sum in another order, and a lane near a degenerate
+    step may take another path on surfaces a rounding apart); frozen lanes
+    unmoved; the scope's pass count is the wrapper's default."""
+    img, org, S_, gx, gy, sc, live = _align_problem(N, N, "none", H, W, device=cuda_device)
+    K = S_ - P + 1
+    surf = torch.empty((N, 2, K, K), device=cuda_device)
+    surf_ref = torch.empty_like(surf)
+    args = (img, org, S_, gx, gy, sc, ITERS, EPS, float(K - 2))
+    got = kc.lk_corr_align(*args, surfaces_out=surf, passes=passes)
+    kc.lk_corr_align_reference(*args, surfaces_out=surf_ref, passes=passes)
+    want = kc.lk_corr_iterate_reference(sc, surf[:, 0], surf[:, 1], ITERS, EPS, float(K - 2))
+    torch.cuda.synchronize()
+    assert float((surf - surf_ref).abs().max()) <= 1e-5 * float(surf_ref.abs().max())
+    assert float((got - want)[live].abs().max()) <= 2 * EPS
+    assert torch.equal(got[~live], sc[~live, 5:7])
+    with matmul_precision_scope("bfloat16" if passes == 1 else "bfloat16_3x"):
+        assert torch.equal(kc.lk_corr_align(*args), kc.lk_corr_align(*args, passes=passes))
+    f32 = torch.empty_like(surf)
+    kc.lk_corr_align(*args, surfaces_out=f32, passes=0)
+    assert not torch.equal(f32, surf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("norm", ["gain", "offset"])
+def test_lk_corr_align_gain_kernel_passes_match_plain(cuda_device, norm, passes):
+    """As above for the three surfaces of 'gain' and 'offset', N=144 at
+    752x480, the loop the affine-photometric one."""
+    img, org, S_, gx, gy, gt, sc, live = _align_gain_problem(144, 144, norm, 480, 752, device=cuda_device)
+    K = S_ - P + 1
+    surf = torch.empty((144, 3, K, K), device=cuda_device)
+    surf_ref = torch.empty_like(surf)
+    args = (img, org, S_, gx, gy, gt, sc, ITERS, EPS, float(K - 2))
+    got = kc.lk_corr_align_gain(*args, surfaces_out=surf, passes=passes)
+    kc.lk_corr_align_gain_reference(*args, surfaces_out=surf_ref, passes=passes)
+    want = kc.lk_corr_iterate_gain_reference(sc, surf[:, 0], surf[:, 1], surf[:, 2], ITERS, EPS, float(K - 2))
+    torch.cuda.synchronize()
+    for i in range(3):
+        assert float((surf[:, i] - surf_ref[:, i]).abs().max()) <= 1e-5 * float(surf_ref[:, i].abs().max())
+    assert float((got - want)[live].abs().max()) <= 2 * EPS
+    assert torch.equal(got[~live], sc[~live, 9:11])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+def test_resample_template_kernel_passes_match_plain(cuda_device, passes):
+    """The bf16 passes of the tent blend (weights and pixels rounded as the
+    passes see them) within 2e-6 x max of the plain version, on the four
+    pyramid level sizes."""
+    rng = np.random.default_rng(6)
+    for H, W in [(480, 752), (240, 376), (120, 188), (60, 94)]:
+        img = torch.as_tensor(_texture(int(rng.integers(1000)), H, W), device=cuda_device)
+        pts, org, Sb = _resample_inputs(H, W, 144, H + 1, device=cuda_device)
+        got = kc.resample_template(img, pts, org, Sb, P, passes=passes)
+        want = kc.resample_template_reference(img, pts, org, Sb, P, passes=passes)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
+        assert got.stride() == want.stride()
+
+
+@pytest.mark.cuda
 def test_extract_template_kernel_matches_plain(cuda_device):
     """Bit-exact on the four pyramid level sizes of the main path, with
     points at and past the image edges (origins and offsets clamped)."""

@@ -27,6 +27,7 @@ from msckf_stereo_c_torch import convert
 from msckf_stereo_c_torch.models import frontend as tfrontend
 from msckf_stereo_c_torch.models import msckf as tmsckf
 from msckf_stereo_c_torch.models import vio as tvio
+from msckf_stereo_c_torch.ops import precision
 from msckf_stereo_c_tpu.models.frontend import make_frontend_params
 from msckf_stereo_c_tpu.models.msckf import make_params
 from msckf_stereo_c_tpu.models.propagation import ImuBatch
@@ -131,17 +132,21 @@ def test_calibration_and_defaults_match():
 
 def test_precision_scope():
     """TF32 only for 'default'; every other float name runs full f32, the
-    bf16 names raise, and the previous flags come back on exit."""
+    bf16 names run their passes with TF32 off, and the previous flags and
+    pass count come back on exit."""
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     for name, allow in [("default", True), ("tensorfloat32", False), ("float32", False), ("highest", False)]:
         with tconfig.matmul_precision_scope(name):
             assert torch.backends.cuda.matmul.allow_tf32 is allow
             assert torch.backends.cudnn.allow_tf32 is allow
         assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == prev
-    for name in ("bfloat16", "bfloat16_3x"):
-        with pytest.raises(NotImplementedError):
-            with tconfig.matmul_precision_scope(name):
-                pass
+    for name, passes in [("bfloat16", 1), ("bfloat16_3x", 3)]:
+        with tconfig.matmul_precision_scope(name):
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+            assert torch.backends.cudnn.allow_tf32 is False
+            assert precision.active_passes() == passes
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == prev
+        assert precision.active_passes() == 0
     with pytest.raises(ValueError):
         tconfig.FrontendConfig(matmul_precision="fp8")
 
