@@ -1,0 +1,8 @@
+"""LM iterations of the triangulation per batched frame: the program's
+``host_read.lm_exit`` spans (one an iteration) under ``filter.lost`` and
+``filter.camera_prune``; the cells that report ``frame_ms_p95``."""
+from bench_vio.trace.spans import lm_iterations_per_frame
+
+
+def read(run):
+    return lm_iterations_per_frame(run.trace)

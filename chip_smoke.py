@@ -56,10 +56,10 @@ Phases, each of which fails the run (exit code 1) if it fails:
    busy share, device ops and host syncs per frame, peak device memory,
    launches per frame, and lane ATEs (at B=16 the worst lane within 1e-4 m
    of lane 0);
-11. stage split: the batch sweep's runs at B in SPLIT_BATCHES with each
-   stage function of a frame (``scripts/stage_split.py``: ``STAGES`` and the
-   lost-track update's sub-phases) in a ``torch.profiler.record_function``
-   range and nothing synchronised: host and device ms, device ops and share
+11. stage split: the batch sweep's runs at B in SPLIT_BATCHES under the
+   profiler, read by the spans the program opens around each stage of a
+   frame (``scripts/stage_split.py``: ``LABELS``, the parts of both updates
+   keyed by their parent) and nothing synchronised: host and device ms, device ops and share
    of the step's device time per stage; every label with device events,
    each sub-phase's device time within its parent's, the front end's and
    the filter's totals plus the device time in no stage equal to the
@@ -1732,7 +1732,7 @@ def phase_batch_sweep(scene, head_state, fcfg, mcfg, card, out_dir):
 def phase_stage_split(scene, head_state, fcfg, mcfg, card):
     """The stage split (``scripts/stage_split.py``) at each B of
     SPLIT_BATCHES over the batch sweep's N_TAIL frames from the same
-    state: every label's range holds device events, every hand kernel's
+    state: every label's spans hold device events, every hand kernel's
     device event is placed in its stage, no sub-phase takes more device
     time than its parent, the front end's and the filter's totals plus the
     device time in no stage make the step's device total within 1 %, and
@@ -1761,7 +1761,7 @@ def phase_stage_split(scene, head_state, fcfg, mcfg, card):
               f"[stage split] B={B}: {table['hand_rest_ms']} ms of hand kernels in no stage "
               f"({table['hand_events']} of {table['hand_launches']} launches placed)")
         empty = [label for label, r in rows.items() if r["device_ops"] == 0]
-        check(not empty, f"[stage split] B={B}: no device event in the ranges of {empty}")
+        check(not empty, f"[stage split] B={B}: no device event in the spans of {empty}")
         for label, r in rows.items():
             parent = parent_of(label)
             if parent is not None:
@@ -1872,7 +1872,7 @@ def phase_precision(scene, head_state, fcfg, mcfg, card, out_dir):
         est = poses.p.cpu().numpy()
         lane0 = _ate(scene.frame_t[k0:], est[0], scene.traj.p[scene.frame_idx[k0:]]) \
             if np.isfinite(est).all() else float("inf")
-        gating = table["stages"]["lost: Schur gating"]
+        gating = table["stages"]["filter.lost/filter.schur_gating"]
 
         def take_kernels():
             torch.cuda.synchronize()

@@ -43,6 +43,7 @@ from ..ops.klt_corr import (
 from ..ops.pyramid import build_pyramid, smooth5
 from ..utils.lanes import add_lane_axis, count_into, drop_lane_axis, lane_index, scatter_drop, take
 from ..utils.lie import so3_exp
+from ..utils.timing import span
 
 # 'gemm' is served by the gather LK: the JAX package's matmul resampling
 # computes the same LK (tests/test_klt_gemm.py) and exists for the TPU's
@@ -569,16 +570,17 @@ def _frontend_step_impl(
     active = state.fid >= 0
     norm, anchor_norm = _norms(cfg)
     carry = _tmpl_carry_active(cfg)
-    if carry:
-        res, _ = optical_flow_lk_corr_l0(
-            pyr0_prev[0], pyr0_curr[0], flat(state.pts0), flat(guess), flat(active), **kw,
-            tmpl_sp=flat(state.tmpl), norm=norm, img_index=idx,
-        )
-    else:
-        tl = max(1, min(cfg.temporal_levels, len(pyr0_prev)))
-        res = _klt_fn(cfg.klt_impl, norm)(
-            pyr0_prev[:tl], pyr0_curr[:tl], flat(state.pts0), flat(guess), flat(active), img_index=idx, **kw
-        )
+    with span("frontend.temporal_lk"):
+        if carry:
+            res, _ = optical_flow_lk_corr_l0(
+                pyr0_prev[0], pyr0_curr[0], flat(state.pts0), flat(guess), flat(active), **kw,
+                tmpl_sp=flat(state.tmpl), norm=norm, img_index=idx,
+            )
+        else:
+            tl = max(1, min(cfg.temporal_levels, len(pyr0_prev)))
+            res = _klt_fn(cfg.klt_impl, norm)(
+                pyr0_prev[:tl], pyr0_curr[:tl], flat(state.pts0), flat(guess), flat(active), img_index=idx, **kw
+            )
     tracked_pts0 = res.pts.reshape(B, N, 2)
     tracked = active & res.valid.reshape(B, N)
     tracked = tracked & (tracked_pts0[..., 0] >= 0) & (tracked_pts0[..., 0] <= W - 1)
@@ -602,23 +604,25 @@ def _frontend_step_impl(
     after_tracking = torch.sum(tracked, dim=1)
 
     # --- New-feature candidates away from the tracked features.
-    cand_xy, cand_score, cand_valid = _detect_candidates(
-        tracked_pts0, tracked, pyr0_curr[0], cfg, img_shape
-    )
+    with span("frontend.fast"):
+        cand_xy, cand_score, cand_valid = _detect_candidates(
+            tracked_pts0, tracked, pyr0_curr[0], cfg, img_shape
+        )
 
     # --- Stereo match of survivors and candidates.
     disparity_guess = tracked_pts0 + (state.pts1 - state.pts0) * depth_ratio[..., None]
-    (
-        (tracked_pts0, pts1, matched, surv_depth),
-        (cand_pts1, cand_ok, cand_depth),
-        (surv_tmpl, cand_tmpl),
-        n_anchor_fused,
-        (surv_snr, cand_snr),
-    ) = _stereo_match_merged(
-        pyr0_curr, pyr1_curr, tracked_pts0, disparity_guess, tracked,
-        cand_xy, cand_valid, params, cfg, img_shape,
-        anchor_sp=state.anchor if (anchor_on and fused) else None,
-    )
+    with span("frontend.stereo"):
+        (
+            (tracked_pts0, pts1, matched, surv_depth),
+            (cand_pts1, cand_ok, cand_depth),
+            (surv_tmpl, cand_tmpl),
+            n_anchor_fused,
+            (surv_snr, cand_snr),
+        ) = _stereo_match_merged(
+            pyr0_curr, pyr1_curr, tracked_pts0, disparity_guess, tracked,
+            cand_xy, cand_valid, params, cfg, img_shape,
+            anchor_sp=state.anchor if (anchor_on and fused) else None,
+        )
     n_anchor = n_anchor + n_anchor_fused  # at most one side is nonzero
     after_matching = torch.sum(matched, dim=1)
 
@@ -651,13 +655,16 @@ def _frontend_step_impl(
     )
 
     # --- Fill under-populated grids with matched candidates; prune.
-    state = _allocate_new_features(
-        state, cand_xy, cand_score, cand_pts1, cand_ok, cfg, img_shape,
-        cfg.grid_min_feature_num, cand_tmpl, cand_depth, cand_snr,
-    )
-    state = _prune_grid_features(state, cfg, img_shape)
+    with span("frontend.allocate"):
+        state = _allocate_new_features(
+            state, cand_xy, cand_score, cand_pts1, cand_ok, cfg, img_shape,
+            cfg.grid_min_feature_num, cand_tmpl, cand_depth, cand_snr,
+        )
+    with span("frontend.prune"):
+        state = _prune_grid_features(state, cfg, img_shape)
 
-    fid, uv, valid = _publish(state, params, cfg, state.pts0.dtype)
+    with span("frontend.publish"):
+        fid, uv, valid = _publish(state, params, cfg, state.pts0.dtype)
     out = FrameOutput(
         fid=fid, uv=uv, valid=valid,
         before_tracking=before_tracking,

@@ -23,6 +23,7 @@ from ..config import FilterConfig, StereoCalib, matmul_precision_scope, resolve_
 from ..utils.chi2 import chi2_p95_table
 from ..utils.lanes import add_lane_axis, at_slot, drop_lane_axis, take, where_lanes
 from ..utils.quaternion import jpl_to_rot, rot_to_jpl
+from ..utils.timing import span
 from .augmentation import add_feature_observations, augment_state
 from .propagation import ImuBatch, batched_propagate
 from .pruning import compact_after_removal, find_redundant_cam_slots
@@ -163,7 +164,8 @@ def _gate_and_update(
             jacs = jacs._replace(H_o=jacs.H_o * sw[..., None, None], r_o=jacs.r_o * sw[..., None])
         gamma = gating_scores(jacs, state.P, params.sigma2)
         use = use & (gamma < params.chi2_table[dof])
-        return measurement_update(state, jacs, use, params.sigma2, method=method)
+        with span("filter.update"):
+            return measurement_update(state, jacs, use, params.sigma2, method=method)
 
     cams = state.cams
     if cam_idx is not None:
@@ -175,13 +177,17 @@ def _gate_and_update(
     if sw is not None:
         blocks = _weighted(blocks, sw)
     if cam_idx is not None:
-        Pc = cam_cov_blocks(state.P, cam_idx)
-        gamma = schur_gating_compact(blocks, Pc, params.sigma2, ns_iters)
+        with span("filter.schur_gating"):
+            Pc = cam_cov_blocks(state.P, cam_idx)
+            gamma = schur_gating_compact(blocks, Pc, params.sigma2, ns_iters)
         use = use & (gamma < params.chi2_table[dof])
-        return measurement_update_schur_compact(state, blocks, use, params.sigma2, cam_idx, ns_iters)
-    gamma = schur_gating(blocks, state.P, params.sigma2, ns_iters)
+        with span("filter.update"):
+            return measurement_update_schur_compact(state, blocks, use, params.sigma2, cam_idx, ns_iters)
+    with span("filter.schur_gating"):
+        gamma = schur_gating(blocks, state.P, params.sigma2, ns_iters)
     use = use & (gamma < params.chi2_table[dof])
-    return measurement_update_schur(state, blocks, use, params.sigma2, ns_iters)
+    with span("filter.update"):
+        return measurement_update_schur(state, blocks, use, params.sigma2, ns_iters)
 
 
 def _weighted(blocks, sw):
@@ -213,9 +219,10 @@ def _triangulated(state: FilterState, params: MsckfParams, idx, active=None):
     motion_ok = check_motion_tracks(
         obs_c, obs_valid_c, state.cams.q, state.cams.p, params.feature_translation_threshold
     )
-    tri = triangulate_tracks(
-        obs_c, obs_valid_c, state.cams.q, state.cams.p, params.R_c0_c1, params.t_c0_c1, active
-    )
+    with span("filter.triangulate"):
+        tri = triangulate_tracks(
+            obs_c, obs_valid_c, state.cams.q, state.cams.p, params.R_c0_c1, params.t_c0_c1, active
+        )
     init_ok = torch.where(initialized_c, True, motion_ok & tri.valid)
     pos = torch.where(initialized_c[..., None], take(tracks.pos, idx), tri.pos_w)
     return obs_c, obs_valid_c, initialized_c, motion_ok & tri.valid, init_ok, pos
@@ -398,14 +405,21 @@ def batched_filter_step(
     if so the prune runs on the whole batch and its result is kept in those
     lanes only.  Returns (state, PoseOutput)."""
     check_supported(cfg, method)
-    with matmul_precision_scope(cfg.matmul_precision):
-        state = _propagate_augment_observe(state, frame, imu, params)
-        state = _remove_lost_features(state, params, cfg, method)
+    with span("filter"), matmul_precision_scope(cfg.matmul_precision):
+        with span("filter.observe"):
+            state = _propagate_augment_observe(state, frame, imu, params)
+        with span("filter.lost"):
+            state = _remove_lost_features(state, params, cfg, method)
         full = state.num_cams >= cfg.max_cam_state_size
-        if bool(torch.any(full)):  # one host read per frame, for every lane
-            state = where_lanes(full, _prune_cam_states(state, params, cfg, method, full), state)
-        out = _publish(state, frame.time, params)
-        state = _online_reset(state, params)
+        with span("host_read.prune_any"):
+            prune = bool(torch.any(full))  # one host read per frame, for every lane
+        if prune:
+            with span("filter.camera_prune"):
+                state = where_lanes(full, _prune_cam_states(state, params, cfg, method, full), state)
+        with span("filter.publish"):
+            out = _publish(state, frame.time, params)
+        with span("filter.online_reset"):
+            state = _online_reset(state, params)
         return state, out
 
 

@@ -18,6 +18,7 @@ import torch
 from ..ops.linalg import solve3x3
 from ..utils.lanes import take
 from ..utils.quaternion import jpl_to_rot
+from ..utils.timing import span
 
 _LM_ITERS = 30
 _HUBER_EPS = 0.01
@@ -167,7 +168,9 @@ def triangulate_tracks(
         active = active & (torch.linalg.norm(delta, dim=-1) > _PRECISION)
         # One host read per iteration, for every lane at once, buys JAX's
         # early exit (LM stops once every track has converged).
-        if not bool(torch.any(active)):
+        with span("host_read.lm_exit"):
+            converged = not bool(torch.any(active))
+        if converged:
             break
 
     inv_rho = 1.0 / torch.where(torch.abs(x[:, 2]) > 1e-12, x[:, 2], 1e-12)

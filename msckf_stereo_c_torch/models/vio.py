@@ -22,6 +22,7 @@ import torch
 from ..config import FilterConfig, FrontendConfig, StereoCalib, matmul_precision_scope, resolve_device
 from ..utils.lanes import add_lane_axis, drop_lane_axis, map_tree
 from ..utils.quaternion import jpl_to_rot
+from ..utils.timing import span
 from . import msckf as _msckf
 from .frontend import (
     FrameOutput,
@@ -84,7 +85,7 @@ def _run_frontend(state: VioState, img0, img1, time, imu: ImuBatch, fparams, fcf
     fdtype = state.filt.P.dtype
     idtype = img0.dtype
     B = state.prev_time.shape[0]
-    with matmul_precision_scope(fcfg.matmul_precision):
+    with matmul_precision_scope(fcfg.matmul_precision), span("frontend.pyramids"):
         pyr0 = lane_pyramids(img0, B, fcfg)
         pyr1 = lane_pyramids(img1, B, fcfg)
 
@@ -134,12 +135,14 @@ def batched_vio_step(
     lane axis, images (B, H, W) per lane or (H, W) shared, ``time`` (B,),
     ``imu`` (B, L, ...).  Every kernel launches once for all lanes.
     Returns (state, (PoseOutput, FrameOutput)), each with a leading B."""
-    tracker, out, frame, pyr0 = _run_frontend(state, img0, img1, time, imu, fparams, fcfg)
-    filt, pose = batched_filter_step(state.filt, frame, imu, mparams, mcfg, method=method)
-    new_state = VioState(
-        tracker=tracker, filt=filt, pyr0_prev=pyr0, prev_time=time.to(state.filt.P.dtype)
-    )
-    return new_state, (pose, out)
+    with span("vio.step"):
+        with span("frontend"):
+            tracker, out, frame, pyr0 = _run_frontend(state, img0, img1, time, imu, fparams, fcfg)
+        filt, pose = batched_filter_step(state.filt, frame, imu, mparams, mcfg, method=method)
+        new_state = VioState(
+            tracker=tracker, filt=filt, pyr0_prev=pyr0, prev_time=time.to(state.filt.P.dtype)
+        )
+        return new_state, (pose, out)
 
 
 def vio_step(

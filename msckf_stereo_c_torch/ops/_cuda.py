@@ -18,6 +18,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
+from ..utils.timing import span
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _NVCC_FLAGS = (
@@ -51,9 +53,13 @@ _SIGNATURES = {
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
-# Launches per kernel, counted by each wrapper where it launches (plain
-# integers; ``reset_launch_counts`` zeroes them before a measured run).
+# Launches per kernel, counted by ``launch`` (plain integers;
+# ``reset_launch_counts`` zeroes them before a measured run).
 launch_counts: Dict[str, int] = {name: 0 for name in _SIGNATURES}
+# The span each launch opens: the profiler links no host op to these
+# kernels (their libraries carry their own CUDA runtime), so a trace
+# places them by these spans.
+_SPANS = {name: f"kernel.{name}" for name in _SIGNATURES}
 
 
 def reset_launch_counts() -> None:
@@ -121,3 +127,13 @@ def kernel_function(name: str):
 def check_launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {rc})")
+
+
+def launch(name: str, *args) -> None:
+    """Call the C entry ``name`` with ``args`` inside its ``kernel.<name>``
+    span, check the launch and count it in ``launch_counts``."""
+    fn = kernel_function(name)
+    with span(_SPANS[name]):
+        rc = fn(*args)
+    check_launch(name, rc)
+    launch_counts[name] += 1

@@ -287,14 +287,12 @@ def _launch_lk(name: str, reference, sc, surfaces, iters, eps, hi) -> torch.Tens
     if 4 * len(surfaces) * K * K * 4 > 48 * 1024:
         raise ValueError(f"K={K}: the surfaces of four features exceed 48 KB of shared memory")
     out = torch.empty((N, 2), dtype=sc.dtype, device=sc.device)
-    fn = _cuda.kernel_function(name)
-    rc = fn(
+    _cuda.launch(
+        name,
         sc.data_ptr(), *(c.data_ptr() for c in surfaces), out.data_ptr(), fstride,
         N, K, int(iters), float(eps), float(hi),
         torch.cuda.current_stream(sc.device).cuda_stream,
     )
-    _cuda.check_launch(name, rc)
-    _cuda.launch_counts[name] += 1
     return out
 
 
@@ -455,16 +453,14 @@ def _launch_align(name, reference, img, origins, S, filters, sc, iters, eps, hi,
     out = torch.empty((N, 2), dtype=sc.dtype, device=sc.device)
     # 16-byte row copies need 16-byte aligned rows: W a multiple of 4 floats.
     vec = int(W % 4 == 0 and imgs.data_ptr() % 16 == 0)
-    fn = _cuda.kernel_function(name)
-    rc = fn(
+    _cuda.launch(
+        name,
         imgs.data_ptr(), origins.data_ptr(), image_index_ptr(img_index, N, imgs),
         *(g.data_ptr() for g in filters), sc.data_ptr(), out.data_ptr(),
         None if surfaces_out is None else surfaces_out.data_ptr(),
         N, B, H, W, H * W, S, P, int(iters), float(eps), float(hi), vec, passes,
         torch.cuda.current_stream(imgs.device).cuda_stream,
     )
-    _cuda.check_launch(name, rc)
-    _cuda.launch_counts[name] += 1
     return out
 
 
@@ -600,13 +596,11 @@ def extract_template(
         raise ValueError("extract_template takes a contiguous image")
     pts = pts.contiguous()
     out = torch.empty((N, P + 2, P + 2), dtype=imgs.dtype, device=imgs.device)
-    fn = _cuda.kernel_function("extract_template")
-    rc = fn(
+    _cuda.launch(
+        "extract_template",
         imgs.data_ptr(), pts.data_ptr(), image_index_ptr(img_index, N, imgs), out.data_ptr(),
         N, B, H, W, H * W, P, torch.cuda.current_stream(imgs.device).cuda_stream,
     )
-    _cuda.check_launch("extract_template", rc)
-    _cuda.launch_counts["extract_template"] += 1
     return out
 
 
@@ -667,13 +661,11 @@ def resample_template(
         raise ValueError("resample_template takes a contiguous image")
     pts, origins = pts.contiguous(), origins.contiguous()
     out = torch.empty((N, P + 2, P + 2), dtype=imgs.dtype, device=imgs.device).transpose(1, 2)
-    fn = _cuda.kernel_function("resample_template")
-    rc = fn(
+    _cuda.launch(
+        "resample_template",
         imgs.data_ptr(), pts.data_ptr(), origins.data_ptr(), image_index_ptr(img_index, N, imgs),
         out.data_ptr(), N, B, H, W, H * W, Sb, P, passes, torch.cuda.current_stream(imgs.device).cuda_stream,
     )
-    _cuda.check_launch("resample_template", rc)
-    _cuda.launch_counts["resample_template"] += 1
     return out
 
 

@@ -102,12 +102,10 @@ def extract_windows(
         raise ValueError("image and origins must lie on one device")
     N = origins.shape[0]
     out = torch.empty((N, S, S), dtype=imgs.dtype, device=imgs.device)
-    fn = _cuda.kernel_function("extract_windows")
-    rc = fn(
+    _cuda.launch(
+        "extract_windows",
         imgs.data_ptr(), origins.data_ptr(), image_index_ptr(img_index, N, imgs),
         out.data_ptr(), N, B, H, W, S, H * W,
         torch.cuda.current_stream(imgs.device).cuda_stream,
     )
-    _cuda.check_launch("extract_windows", rc)
-    _cuda.launch_counts["extract_windows"] += 1
     return out

@@ -10,16 +10,16 @@ Runs ``bench.py``'s configuration and scene (``bench.bench_configs``, its
 over ``SPLIT_FRAMES`` frames, starting from the state the first
 HEAD_FRAMES frames of the scene leave (window full, every frame prunes),
 broadcast to B lanes that share the images and the IMU.  After a two-frame
-warm-up at that B, one run under ``torch.profiler`` with each stage
-function (``STAGES``, and ``LOST_STAGES`` inside the lost-track update)
-wrapped in a ``record_function`` range: nothing is synchronised and the
-program is unchanged, so the run gives the poses an unwrapped run gives.
-The JAX scripts cut the program short to isolate a phase; the ranges
-measure the whole program instead.
+warm-up at that B, one run under ``torch.profiler``, which turns on the
+spans the program opens around its stages (``utils/timing.py:span``;
+``LABELS``): nothing is synchronised and the program is unchanged, so the
+run gives the poses an unprofiled run gives.  The JAX scripts cut the
+program short to isolate a phase; the spans measure the whole program
+instead.
 
 Prints per B and stage the host ms and device ms per batched frame (the
-device work launched inside the range; a hand kernel's by the launch log
-``stage_ranges`` keeps), the device ops, and the share of the step's
+device work launched inside the span; a hand kernel's placed by its
+``kernel.<name>`` span), the device ops, and the share of the step's
 device time; then the step's own device total, the device time in no
 stage and the kernels that take it.  Runs on the CUDA card;
 ``main(device="cpu")`` runs on the CPU (no device time there).
@@ -38,14 +38,12 @@ import torch
 HEAD_FRAMES = 52  # frames before the split's: the camera window is full from here on
 WARMUP_FRAMES = 2
 
-FRONTEND_TOTAL = "frontend total"
-FILTER_TOTAL = "filter total"
-LOST_PARENT = "filter: lost-track update"
-
-# Stages of one frame: (module, attribute, key, label), in the order a
-# frame runs them, the two totals last.  The stage function is the module
-# attribute, or its entry ``key`` where the attribute is a dict (the front
-# end calls its LK through the ``_KLT_IMPLS`` table).
+# Stage functions of one frame: (module, attribute, key, label), in the
+# order a frame runs them, the two totals last.  The stage function is the
+# module attribute, or its entry ``key`` where the attribute is a dict (the
+# front end calls its LK through the ``_KLT_IMPLS`` table).  ``wrapped``
+# replaces them for ``chip_smoke.py``'s synchronised stage times; the split
+# itself reads the program's own spans.
 STAGES = (
     ("msckf_stereo_c_torch.models.vio", "pyramids_for", None, "frontend: pyramids"),
     ("msckf_stereo_c_torch.models.frontend", "optical_flow_lk_corr_l0", None, "frontend: temporal LK"),
@@ -58,31 +56,41 @@ STAGES = (
     ("msckf_stereo_c_torch.models.msckf", "batched_propagate", None, "filter: propagate"),
     ("msckf_stereo_c_torch.models.msckf", "augment_state", None, "filter: augment"),
     ("msckf_stereo_c_torch.models.msckf", "add_feature_observations", None, "filter: observe"),
-    ("msckf_stereo_c_torch.models.msckf", "_remove_lost_features", None, LOST_PARENT),
+    ("msckf_stereo_c_torch.models.msckf", "_remove_lost_features", None, "filter: lost-track update"),
     ("msckf_stereo_c_torch.models.msckf", "_prune_cam_states", None, "filter: camera prune"),
     ("msckf_stereo_c_torch.models.msckf", "_online_reset", None, "filter: online reset"),
-    ("msckf_stereo_c_torch.models.vio", "_run_frontend", None, FRONTEND_TOTAL),
-    ("msckf_stereo_c_torch.models.vio", "batched_filter_step", None, FILTER_TOTAL),
+    ("msckf_stereo_c_torch.models.vio", "_run_frontend", None, "frontend total"),
+    ("msckf_stereo_c_torch.models.vio", "batched_filter_step", None, "filter total"),
 )
-# The lost-track update's sub-phases (lost_phase_split.py's), ranged only
-# inside it: the camera prune calls some of them too.
-LOST_STAGES = (
-    ("msckf_stereo_c_torch.models.msckf", "check_motion_tracks", None, "lost: motion check"),
-    ("msckf_stereo_c_torch.models.msckf", "triangulate_tracks", None, "lost: triangulate"),
-    ("msckf_stereo_c_torch.models.msckf", "track_blocks", None, "lost: track blocks"),
-    ("msckf_stereo_c_torch.models.msckf", "schur_gating", None, "lost: Schur gating"),
-    ("msckf_stereo_c_torch.models.msckf", "measurement_update_schur", None, "lost: Schur update"),
+
+# The program's spans (``utils/timing.py:span``) a frame opens under
+# ``vio.step``, as the split's labels: a stage's span name, or
+# ``<parent>/<span>`` for the three parts of an update, which the
+# lost-track update and the camera prune both run.  Parents come before
+# their parts, the two totals last.
+FRONTEND_TOTAL = "frontend"
+FILTER_TOTAL = "filter"
+UPDATE_PARTS = ("filter.triangulate", "filter.schur_gating", "filter.update")
+UPDATES = ("filter.lost", "filter.camera_prune")
+LABELS = (
+    "frontend.pyramids", "frontend.temporal_lk", "frontend.fast", "frontend.stereo",
+    "frontend.allocate", "frontend.prune", "frontend.publish",
+    "filter.observe",
+    "filter.lost", *(f"filter.lost/{part}" for part in UPDATE_PARTS),
+    "filter.camera_prune", *(f"filter.camera_prune/{part}" for part in UPDATE_PARTS),
+    "filter.publish", "filter.online_reset",
+    FRONTEND_TOTAL, FILTER_TOTAL,
 )
 TOTALS = (FRONTEND_TOTAL, FILTER_TOTAL)
-LABELS = tuple(stage[-1] for stage in STAGES + LOST_STAGES)
+KERNEL = "kernel."  # the span around each hand-kernel launch: ``kernel.<name>``
 
 
 def parent_of(label: str):
-    """The label whose range encloses ``label``'s (None for the totals)."""
+    """The label whose span encloses ``label``'s (None for the totals)."""
     if label in TOTALS:
         return None
-    if label.startswith("lost: "):
-        return LOST_PARENT
+    if "/" in label:
+        return label.split("/")[0]
     return FRONTEND_TOTAL if label.startswith("frontend") else FILTER_TOTAL
 
 
@@ -119,122 +127,81 @@ def wrapped(stages, make_wrapper):
             _set_stage_function(stage, fn)
 
 
-@contextlib.contextmanager
-def stage_ranges():
-    """Within the scope every stage function runs inside a
-    ``torch.profiler.record_function`` range of its label (the lost-track
-    sub-phases only inside the lost-track update); restored on exit.
-
-    Yields the log of hand-kernel launches made in the scope: (kernel,
-    labels of the ranges around the launch), in launch order.  The
-    profiler does not always link a host op to these kernels (their
-    libraries carry their own CUDA runtime), so ``stage_table`` places the
-    unlinked ones by this log."""
-    from ..ops import _cuda
-
-    active = set()
-    log = []
-
-    def ranged(fn, label):
-        inside = parent_of(label) if label.startswith("lost: ") else None
-
-        def wrapper(*args, **kwargs):
-            if inside is not None and inside not in active:
-                return fn(*args, **kwargs)
-            active.add(label)
-            try:
-                with torch.profiler.record_function(label):
-                    return fn(*args, **kwargs)
-            finally:
-                active.discard(label)
-
-        return wrapper
-
-    kernel_function = _cuda.kernel_function
-
-    def logged_kernel_function(name):
-        fn = kernel_function(name)
-
-        def launch(*args):
-            log.append((name, tuple(sorted(active))))
-            return fn(*args)
-
-        return launch
-
-    _cuda.kernel_function = logged_kernel_function
-    try:
-        with wrapped(STAGES + LOST_STAGES, ranged):
-            yield log
-    finally:
-        _cuda.kernel_function = kernel_function
+def kernel_key(name: str) -> str:
+    """``<kernel>(`` of a device event's name, without a leading ``void``
+    and template arguments: ``lk_corr_align_kernel(`` of ``void
+    lk_corr_align_kernel<0>(float const*, ...)``."""
+    head = name[: name.find("(")] if "(" in name else name
+    head = head.removeprefix("void ")
+    if "<" in head:
+        head = head[: head.find("<")]
+    return head + "("
 
 
-def stage_table(events, frames: int, launches=()) -> dict:
-    """Per label of ``LABELS`` (its ranges' calls, host ms, device ms and
+def stage_table(events, frames: int) -> dict:
+    """Per label of ``LABELS`` (its spans' calls, host ms, device ms and
     device ops per frame, share of the step's device time) and the step's
     device total, ops, the device time in no stage and the kernels that
     take it, from a profile's raw events
     (``prof.profiler.kineto_results.events()``: reading them takes seconds
     where building ``prof.events()`` takes minutes at B=1024).
 
-    A device event belongs to the ranges around the host op that launched
-    it.  A hand kernel has no such op: the k-th device event of kernel
-    ``name`` belongs to the ranges of the k-th ``(name, labels)`` of
-    ``launches`` (``stage_ranges``' log; one stream runs them in launch
-    order).  Anything else, or a device event in neither total's range, is
-    in no stage."""
+    A device event belongs to the spans around the host op that launched
+    it.  A hand kernel may have no such op: the k-th device event of kernel
+    ``name`` then belongs to the spans around the k-th ``kernel.<name>``
+    span (one stream runs them in launch order).  Anything else, or a
+    device event in neither total's span, is in no stage."""
     from bisect import bisect_right
     from collections import Counter, defaultdict
 
     from torch.autograd import DeviceType
 
-    spans = {label: [] for label in LABELS}
-    op_start = {}  # correlation id of a host op or range -> its start
+    names = {label.split("/")[-1] for label in LABELS}
+    named = defaultdict(list)  # span name -> (start, end)
+    launched = defaultdict(list)  # kernel_key -> starts of its kernel.<name> spans
+    op_start = {}  # correlation id of a host op or span -> its start
     device = []  # (start, ns, name, correlation id of the launching op)
     for e in events:
         kind = e.device_type()
         if kind == DeviceType.CPU:
-            if e.linked_correlation_id() == 0:  # an op or a range, not a runtime call
+            if e.linked_correlation_id() == 0:  # an op or a span, not a runtime call
                 start = e.start_ns()
                 op_start[e.correlation_id()] = start
-                if e.name() in spans:
-                    spans[e.name()].append((start, e.end_ns()))
+                if e.name() in names:
+                    named[e.name()].append((start, e.end_ns()))
+                elif e.name().startswith(KERNEL):
+                    launched[e.name()[len(KERNEL):] + "_kernel("].append(start)
         elif kind == DeviceType.CUDA and not e.is_user_annotation():
             device.append((e.start_ns(), e.duration_ns(), e.name(), e.linked_correlation_id()))
-    for s in spans.values():
-        s.sort()
-    starts = {label: [lo for lo, _ in s] for label, s in spans.items()}
-    logged = defaultdict(list)
-    for name, labels in launches:
-        logged[f"{name}_kernel("].append(labels)
-    taken = Counter()
+    for starts in launched.values():
+        starts.sort()
+
+    spans, starts = {}, {}  # label -> its spans (inside its parent's), their starts
 
     def inside(label, t) -> bool:
         i = bisect_right(starts[label], t) - 1
         return i >= 0 and t <= spans[label][i][1]
 
-    def labels_at(t):
-        tops = [total for total in TOTALS if inside(total, t)]
-        hit = list(tops)
-        for lb in LABELS:
-            if lb not in TOTALS and parent_of(lb) in hit and inside(lb, t):
-                hit.append(lb)
-        return hit
+    for label in LABELS:  # parents first
+        parent = parent_of(label) if "/" in label else None
+        spans[label] = sorted(iv for iv in named[label.split("/")[-1]] if parent is None or inside(parent, iv[0]))
+        starts[label] = [lo for lo, _ in spans[label]]
 
     dev_ns = Counter()
     dev_ops = Counter()
     rest = Counter()
+    taken = Counter()
     total_ns = 0
     for _, ns, name, corr in sorted(device):
         total_ns += ns
         t = op_start.get(corr)
-        if t is not None:
-            hit = labels_at(t)
-        else:
-            key = name[: name.find("(") + 1]
-            queue = logged.get(key, ())
-            hit = list(queue[taken[key]]) if taken[key] < len(queue) else []
-            taken[key] += bool(queue)
+        if t is None:
+            key = kernel_key(name)
+            queue = launched.get(key, ())
+            if taken[key] < len(queue):
+                t = queue[taken[key]]
+                taken[key] += 1
+        hit = [] if t is None else [lb for lb in LABELS if inside(lb, t)]
         for lb in hit:
             dev_ns[lb] += ns
             dev_ops[lb] += 1
@@ -253,8 +220,8 @@ def stage_table(events, frames: int, launches=()) -> dict:
         frames=frames, stages=rows, device_ms=total_ns / 1e6 / frames, device_ops=len(device) / frames,
         rest_ms=sum(rest.values()) / 1e6 / frames,
         rest_top=[dict(name=n, device_ms=v / 1e6 / frames) for n, v in rest.most_common(5)],
-        hand_launches=len(launches), hand_events=sum(taken.values()),
-        hand_rest_ms=sum(v for n, v in rest.items() if n[: n.find("(") + 1] in logged) / 1e6 / frames,
+        hand_launches=sum(len(q) for q in launched.values()), hand_events=sum(taken.values()),
+        hand_rest_ms=sum(v for n, v in rest.items() if kernel_key(n) in launched) / 1e6 / frames,
     )
 
 
@@ -264,9 +231,10 @@ def _sync(device: torch.device) -> None:
 
 
 def profile_stages(run: Callable[[], object], frames: int, device) -> tuple:
-    """``run()`` once with the stages ranged, under ``torch.profiler``
-    (host and device activity); returns (its result, ``stage_table`` with
-    the profiled wall ms per frame and the kernel launches of the run)."""
+    """``run()`` once under ``torch.profiler`` (host and device activity),
+    which turns the program's spans on; returns (its result,
+    ``stage_table`` with the profiled wall ms per frame and the kernel
+    launches of the run)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ..ops import _cuda
@@ -275,13 +243,13 @@ def profile_stages(run: Callable[[], object], frames: int, device) -> tuple:
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
     _sync(device)
     _cuda.reset_launch_counts()
-    with stage_ranges() as log, profile(activities=activities) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         result = run()
         _sync(device)
         wall = time.perf_counter() - t0
     launches = dict(_cuda.launch_counts)
-    table = stage_table(prof.profiler.kineto_results.events(), frames, log)
+    table = stage_table(prof.profiler.kineto_results.events(), frames)
     table.update(wall_ms=wall * 1e3 / frames, launches=launches)
     return result, table
 
@@ -328,8 +296,8 @@ def head_state(scene, k0: int, fcfg, mcfg, method: str, device):
 
 
 def split_at(run, tag: str = "split") -> tuple:
-    """Warm-up, then one profiled run of ``run`` with the stages ranged;
-    prints the table and returns (the run's result, its table)."""
+    """Warm-up, then one profiled run of ``run``; prints the table and
+    returns (the run's result, its table)."""
     B, T = run.times.shape
     run(WARMUP_FRAMES)
     result, table = profile_stages(run, T, run.device)

@@ -1,4 +1,5 @@
-"""Per-phase timing harness (port of ``msckf_stereo_c_tpu/utils/timing.py``).
+"""Per-phase timing harness (port of ``msckf_stereo_c_tpu/utils/timing.py``)
+and the program's profiler spans.
 
 The reference wraps every back-end phase in std::chrono timers and prints a
 red overrun report when a frame exceeds 1/frame_rate (msckf_vio.cpp:321-372).
@@ -6,6 +7,14 @@ Work on the card is queued, so a phase that should include the card's time
 passes ``sync``: a tensor or device whose CUDA device is synchronised before
 the phase's clock stops.  The report and the overrun count are the JAX
 harness's.
+
+``span(name)`` marks a piece of the program's work on the profiler's clock:
+a ``torch.profiler.record_function`` range while a profiler records, and
+nothing but one check of the profiler's flag otherwise.  The frame step
+opens its spans with it (``vio.step`` and the stages under it, a
+``host_read.<site>`` around each device-to-host read, a ``kernel.<name>``
+around each hand-kernel launch), and ``PhaseTimer.phase`` opens one per
+phase.
 """
 from __future__ import annotations
 
@@ -15,6 +24,17 @@ from collections import defaultdict
 from typing import Dict, Optional
 
 import torch
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a profiler records; while
+    none does, a shared null context after one check of the flag."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def synchronize(sync) -> None:
@@ -38,9 +58,10 @@ class PhaseTimer:
     @contextlib.contextmanager
     def phase(self, name: str, sync=None):
         t0 = time.perf_counter()
-        yield
-        if sync is not None:
-            synchronize(sync)
+        with span(name):
+            yield
+            if sync is not None:
+                synchronize(sync)
         dt = time.perf_counter() - t0
         self.totals[name] += dt
         self.counts[name] += 1

@@ -502,6 +502,28 @@ def test_extract_template_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+def test_launch_opens_its_kernel_span(cuda_device):
+    """While a profiler records, a launch opens its ``kernel.<name>`` span,
+    which the kernel's device event follows, and counts once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    img = torch.as_tensor(_texture(5, 120, 188), device=cuda_device)
+    pts = _edge_points(120, 188, 144, 120, device=cuda_device)
+    kc.extract_template(img, pts, P)  # built and loaded outside the profile
+    before = _cuda.launch_counts["extract_template"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kc.extract_template(img, pts, P)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    spans = [e for e in events if e.device_type() == DeviceType.CPU and e.name() == "kernel.extract_template"]
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA and "extract_template_kernel" in e.name()]
+    assert _cuda.launch_counts["extract_template"] == before + 1
+    assert len(spans) == 1 and len(kernels) == 1
+    assert kernels[0].start_ns() >= spans[0].start_ns()
+
+
+@pytest.mark.cuda
 def test_extract_template_kernel_image_index(cuda_device):
     imgs = torch.rand((3, 120, 188), device=cuda_device) * 255
     pts = _edge_points(120, 188, 30, 1, device=cuda_device)
