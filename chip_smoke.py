@@ -19,12 +19,14 @@ Phases, each of which fails the run (exit code 1) if it fails:
    run; ``lk_corr_align``, ``lk_corr_align_gain`` (N=144) and
    ``resample_template`` again at one and three bf16 passes against their
    plain versions at the same passes, with the same bars, and their
-   device times;
+   device times; ``fast_grid_corners`` on B = 1 and 512 presmoothed bench
+   frames against its plain version (``fast_rows``);
 4. main path: ``run_vio_sequence`` over the bench scene (752x480 stereo,
    the configuration ``bench.py`` runs, B=1) with the kernel launch counts
    zeroed just before and read just after (7 ``lk_corr_align``, 4
-   ``extract_template``, 1 ``resample_template`` and none of the others per
-   frame); frames/s, ATE, tracks, host syncs;
+   ``extract_template``, 1 ``resample_template``, 1 ``fast_grid_corners``
+   and none of the others per frame: "7 / 4 / 1 / 1" below); frames/s, ATE,
+   tracks, host syncs;
 5. mode sweep: each ``klt_norm`` mode over 20 bench frames, with the exact
    launch split per frame it must give (``launches_per_frame``);
 6. methods: the last METHOD_FRAMES bench frames from the state the frames
@@ -32,7 +34,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    'cholesky' and 'schur' with exact solves and 'schur' with 10
    Newton-Schulz iterations in float32, 'qr' and 'cholesky' in float64):
    ATE under 0.13 m, frames/s, host syncs by call site, launches exactly
-   7 / 4 / 1 a frame, the float64 methods within 1e-4 m of each other, and
+   7 / 4 / 1 / 1 a frame, the float64 methods within 1e-4 m of each other, and
    ``run_vio_sequence(internals_at=INTERNALS_AT)`` with every key of the
    dump and the poses of the run without it;
 7. profile: the last N_TAIL bench frames again, from the state the frames
@@ -47,7 +49,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    own trajectory offset (rendered on the card), stepped together over
    DISTINCT_FRAMES frames by ``parallel/vio_multiseq.py:run_vio_batch``
    with the launch counts zeroed just before and read just after (the same
-   7 / 4 / 1 per batched frame), against four one-lane runs: feature ids
+   7 / 4 / 1 / 1 per batched frame), against four one-lane runs: feature ids
    and validity equal on the first 10 frames, each lane's ATE within
    2e-4 m of its one-lane run;
 10. batch sweep: B in SWEEP_BATCHES with bench.py's semantics (images and
@@ -105,7 +107,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
 17. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
    ``sim/stress.py:run_stress_lanes`` run over STRESS_LANE_SECONDS of the
    stress scene (``klt_norm='none'``; each lane its own landmarks, IMU
-   noise, photometric draws and images), launches 7 / 4 / 1 per batched
+   noise, photometric draws and images), launches 7 / 4 / 1 / 1 per batched
    frame, against each seed's one-lane ``run_stress_gate``: ids and
    validity equal on the first 10 frames; with the filter in float64 the
    ATEs within 2e-4 m, in float32 (the stress script's dtype, whose batched
@@ -131,7 +133,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    on the one card; (b) the ``vio`` workers (half resolution, 4 lanes over
    2 ranks, 8 frames) and the ``ba`` workers in float64; (c) the ``bench``
    workers, one lane a rank, timed against the one-process 2-lane chunk.
-   Every rank's launches exactly 7 / 4 / 1 per batched frame, each rank's
+   Every rank's launches exactly 7 / 4 / 1 / 1 per batched frame, each rank's
    lanes against a one-process run of its own block (ids and validity on
    the first 10 frames, positions within 2e-4 m), the all-reduced
    ``total_tracks`` equal to the sum of the ranks' own totals, the BA
@@ -277,6 +279,12 @@ KERNEL_SOURCES = {
     "resample_template": (
         "msckf_stereo_c_torch/csrc/resample_template.cu",
         "msckf_stereo_c_tpu/ops/patch_extract.py:28",
+    ),
+    # No Pallas kernel: the jnp fast_score_map and detect_grid_corners that
+    # XLA fused on the TPU.
+    "fast_grid_corners": (
+        "msckf_stereo_c_torch/csrc/fast_grid_corners.cu",
+        "msckf_stereo_c_tpu/ops/fast.py:28",
     ),
 }
 
@@ -540,7 +548,91 @@ def phase_kernels(img0, img1, fcfg):
     rows += template_rows(pyr_a, corners, fcfg.patch_size)
     rows += resample_rows(pyr_a[0], pyr_b[0], corners, fcfg)
     rows += lk_rows("K1", pyr_a[0], pyr_b[0], fcfg, "none")
-    return rows + align_rows(pyr_a, pyr_b, corners, fcfg, "none")
+    rows += align_rows(pyr_a, pyr_b, corners, fcfg, "none")
+    return rows + fast_rows(img0, fcfg)
+
+
+FAST_BATCHES = (1, 512)  # the live cell's lanes and the eval cell's
+FAST_RTOL = 1e-4  # the plain version's torch.sum adds the 16 circle terms in another order
+
+
+def fast_rows(img0, fcfg):
+    """``fast_grid_corners`` against its plain version at the main path's
+    shapes: B presmoothed 480x752 bench frames (frame b mod T at lane b),
+    the front end's threshold and cell.  The corner mask exact and the score
+    map within FAST_RTOL (``score_out``); the cell picks equal outside
+    near-tie cells (top two plain scores within FAST_RTOL); one launch a
+    call.  Per-call and device time; the bound, one read of the images and
+    13 bytes a cell written; the plain version's per-call and device time,
+    which is the chain the kernel replaces (``fast_score_map``'s 16-plane
+    tensors and rolls, then ``argmax`` and ``gather``)."""
+    import torch
+
+    from msckf_stereo_c_torch.models.frontend import pyramids_for
+    from msckf_stereo_c_torch.ops import _cuda
+    from msckf_stereo_c_torch.ops.fast import detect_grid_corners, detect_grid_corners_reference, fast_score_map
+
+    dev = torch.device("cuda")
+    thr, cell = float(fcfg.fast_threshold), fcfg.detector_cell
+    frames = torch.as_tensor(img0, device=dev)
+    rows = []
+    for B in FAST_BATCHES:
+        imgs = pyramids_for(frames[torch.arange(B, device=dev) % frames.shape[0]].contiguous(), fcfg)[0]
+        _, H, W = imgs.shape
+        Gy, Gx = H // cell, W // cell
+        score_out = torch.zeros_like(imgs)
+        before = _cuda.launch_counts["fast_grid_corners"]
+        got = detect_grid_corners(imgs, thr, cell, score_out=score_out)
+        check(_cuda.launch_counts["fast_grid_corners"] == before + 1, "fast_grid_corners: not one launch a call")
+        want = detect_grid_corners_reference(imgs, thr, cell)
+        smap = fast_score_map(imgs, thr)[:, : Gy * cell, : Gx * cell]
+        kmap = score_out[:, : Gy * cell, : Gx * cell]
+        torch.cuda.synchronize()
+        check(torch.equal(kmap > 0, smap > 0), f"fast_grid_corners B={B}: corner mask differs from the plain map")
+        gap = (kmap - smap).abs()
+        rel = float((gap / smap.clamp_min(torch.finfo(torch.float32).tiny)).max())
+        abs_err = float(gap.max())
+        check(rel <= FAST_RTOL, f"fast_grid_corners B={B}: score {rel:.3g} relative from the plain map")
+        tiles = smap.reshape(B, Gy, cell, Gx, cell).transpose(2, 3).reshape(B, Gy * Gx, cell * cell)
+        top = torch.topk(tiles, 2, dim=-1).values
+        near = (top[..., 0] > 0) & (top[..., 0] - top[..., 1] <= FAST_RTOL * top[..., 0])
+        same = (got.valid == want.valid) & (got.xy == want.xy).all(-1)
+        check(bool((same | near).all()), f"fast_grid_corners B={B}: {int((~same & ~near).sum())} cell picks differ")
+        n_near, n_corners, n_valid = int(near.sum()), int((smap > 0).sum()), int(want.valid.sum())
+        del want, smap, kmap, tiles, top, gap, score_out
+        torch.cuda.empty_cache()
+
+        def kernel():
+            return detect_grid_corners(imgs, thr, cell)
+
+        def plain():
+            return detect_grid_corners_reference(imgs, thr, cell)
+
+        reps = 50 if B == 1 else 10
+        plain_reps = 20 if B == 1 else 2
+        ms = cuda_ms(kernel, reps=reps)
+        dev_ms = device_ms(kernel, "fast_grid_corners_kernel", reps=reps)
+        plain_ms = cuda_ms(plain, reps=plain_reps, warmup=1)
+        chain_ms = device_ms_per_call(plain, reps=plain_reps)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernel()
+        kernel_mem = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        plain()
+        plain_mem = torch.cuda.max_memory_allocated() - base
+        torch.cuda.empty_cache()
+        b, by = bound_ms(imgs.numel() * 4 + B * Gy * Gx * 13, 0)
+        rows.append(dict(name="fast_grid_corners", B=B, H=H, W=W, cell=cell, threshold=thr, corners=n_corners,
+                         valid_cells=n_valid, near_ties=n_near, max_rel_err=rel, max_abs_err=abs_err,
+                         ms=ms, device_ms=dev_ms, plain_ms=plain_ms, chain_device_ms=chain_ms, library_ms=None,
+                         bound_ms=b, bound_by=by, kernel_peak_bytes=kernel_mem, plain_peak_bytes=plain_mem))
+        print(f"[fast] B={B} {W}x{H} cell={cell} t={thr:g}: {n_corners} corners, {n_valid} valid cells, "
+              f"{n_near} near ties, score within {rel:.3g} relative, picks equal; per call {ms:.4f} ms (device "
+              f"{_fmt(dev_ms)}), plain {plain_ms:.4f} ms (device {_fmt(chain_ms)}), bound {b:.5f} ms ({by}); "
+              f"peak {kernel_mem / 2**30:.4f} GiB against the plain version's {plain_mem / 2**30:.4f} GiB")
+        del imgs
+    return rows
 
 
 def _best_corners(img, fcfg, n):
@@ -1207,7 +1299,7 @@ def phase_methods(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
     'schur' with exact solves and 'schur' with 10 Newton-Schulz iterations,
     then 'qr' and 'cholesky' in float64 (the state cast).  Each run's ATE
     under 0.13 m, frames/s, host syncs per frame by call site (one more run
-    in torch's sync debug mode) and launches, exactly 7 / 4 / 1 a frame;
+    in torch's sync debug mode) and launches, exactly 7 / 4 / 1 / 1 a frame;
     the float64 methods within 1e-4 m of each other; and
     ``run_vio_sequence(internals_at=INTERNALS_AT)`` under 'qr': every key
     of the dump, poses equal to the same run without it."""
@@ -1298,7 +1390,7 @@ def phase_stress_lanes(card):
     ``run_stress_lanes`` over STRESS_LANE_SECONDS of the stress scene with
     klt_norm='none' (each lane its own landmarks, IMU noise, photometric
     draws and images, rendered on the card), with the launch counts zeroed
-    just before and read just after (7 / 4 / 1 per batched frame); then
+    just before and read just after (7 / 4 / 1 / 1 per batched frame); then
     each seed's one-lane ``run_stress_gate``: feature ids and validity equal
     on the first 10 frames.  Once with the filter in float64, where the
     lanes' ATEs must be within 2e-4 m of the one-lane runs', and once in
@@ -1560,7 +1652,7 @@ def phase_distinct_lanes(scene, fcfg, mcfg, card):
     lane b starts 60 b IMU samples (0.3 b s) after the spin-up begins, its
     frames rendered on the card (nominal, no stress channel).  One batched
     run over DISTINCT_FRAMES frames with the launch counts zeroed just
-    before and read just after (7 / 4 / 1 per batched frame), then each
+    before and read just after (7 / 4 / 1 / 1 per batched frame), then each
     lane alone: feature ids and validity equal on the first 10 frames, each
     lane's ATE within 2e-4 m of its one-lane run (the first frame where a
     lane's ids part from its one-lane run is recorded)."""
@@ -1947,10 +2039,12 @@ def launches_per_frame(fcfg, img_shape=(480, 752)) -> dict:
       backward: ``resample_template`` and an alignment), or one level with
       its template kept (template carry), or ``stereo_levels`` levels, then
       the unfused left-right pass (one level);
-    - ``klt_impl`` 'gather' and 'gemm' launch nothing (the gather LK is
-      plain PyTorch).
+    - ``klt_impl`` 'gather' and 'gemm' launch no LK kernel (the gather LK
+      is plain PyTorch);
+    - FAST is one ``fast_grid_corners`` under every configuration.
     """
     counts = dict.fromkeys(KERNEL_SOURCES, 0)
+    counts["fast_grid_corners"] = 1
     if fcfg.klt_impl != "corr":
         return counts
     P, L = fcfg.patch_size, fcfg.pyramid_levels
@@ -2845,6 +2939,7 @@ def main(argv=None) -> int:
         "lk_corr_align_gain": next(r for r in rows if r["name"] == "lk_corr_align_gain" and r["level"] == 0
                                    and r["N"] == 144 and r["norm"] == "gain"),
         "resample_template": next(r for r in rows if r["name"] == "resample_template"),
+        "fast_grid_corners": next(r for r in rows if r["name"] == "fast_grid_corners" and r["B"] == 1),
     }
     # Launch counts come from the bench path, lk_corr_align_gain's from the
     # stress path (the bench path runs klt_norm='none', which never launches

@@ -49,6 +49,7 @@ _SIGNATURES = {
         ctypes.c_float, ctypes.c_float, _I, _I, _P,
     ),
     "resample_template": (_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _I, _P),
+    "fast_grid_corners": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

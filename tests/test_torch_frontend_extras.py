@@ -65,6 +65,12 @@ def test_launches_per_frame_counts_the_wrapper_calls(scene, monkeypatch, name):
             return out
 
         monkeypatch.setattr(tkc, kernel, counted)
+
+    def fast_counted(img, *args, _fn=tfe.detect_grid_corners, **kwargs):
+        calls["fast_grid_corners"] += 1
+        return _fn(img, *args, **kwargs)
+
+    monkeypatch.setattr(tfe, "detect_grid_corners", fast_counted)
     cfg = tconfig.FrontendConfig(max_features=48, **LAUNCH_CONFIGS[name])
     p0, p1 = tfe.pyramids_for(torch.as_tensor(img0[0]), cfg), tfe.pyramids_for(torch.as_tensor(img1[0]), cfg)
     g, dt, first, v = (torch.as_tensor(np.asarray(x)) for x in frame_inputs(traj, imu, IDX, 0))

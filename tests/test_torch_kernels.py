@@ -1,4 +1,4 @@
-"""The port's seven hand-written CUDA kernels, their wrappers and their
+"""The port's eight hand-written CUDA kernels, their wrappers and their
 plain versions.
 
 The tests marked ``cuda`` hold each kernel against its plain version on the
@@ -17,6 +17,7 @@ import torch
 from chip_smoke import lk_trace
 from msckf_stereo_c_torch.config import matmul_precision_scope
 from msckf_stereo_c_torch.ops import _cuda
+from msckf_stereo_c_torch.ops import fast as tfast
 from msckf_stereo_c_torch.ops import klt_corr as kc
 from msckf_stereo_c_torch.ops.patch_extract import extract_windows, extract_windows_reference
 
@@ -558,3 +559,115 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda_device):
                               30, 0.01, HI)
     with pytest.raises(TypeError):
         kc.resample_template(img64, torch.zeros((3, 2), device=cuda_device, dtype=torch.float64), org, 37, P)
+
+
+# The FAST kernel sums the 16 circle terms in circle order; the plain
+# version's ``torch.sum`` may add them in another order, so scores agree to
+# float32 rounding of a 16-term sum, not bit for bit.
+FAST_RTOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def rendered_frames():
+    """Three presmoothed 480x752 frames of the bench scene (float32)."""
+    from msckf_stereo_c_torch.ops.pyramid import smooth5
+    from msckf_stereo_c_torch.sim import make_circle_trajectory, make_wall_landmarks
+    from msckf_stereo_c_torch.sim.render import render_stereo_sequence
+
+    traj = make_circle_trajectory(duration=4.0)
+    img0, _ = render_stereo_sequence(traj, make_wall_landmarks(num=600, radius=8.0, seed=1),
+                                     np.array([300, 330, 360]), r_wall=8.0)
+    return smooth5(torch.as_tensor(img0, dtype=torch.float32))
+
+
+def _fast_images(kind, H, W, rendered):
+    """(B, H, W) float32: 'rendered' one bench frame (a centre crop where
+    smaller), 'random' three distinct smoothed random textures."""
+    if kind == "rendered":
+        y0, x0 = (480 - H) // 2, (752 - W) // 2
+        return rendered[:1, y0 : y0 + H, x0 : x0 + W].contiguous()
+    return torch.as_tensor(np.stack([_texture(s, H, W) for s in (11, 12, 13)]))
+
+
+def _hold_fast(img, thr, cell, occupied, expect_no_ties):
+    """The kernel against the plain version on one stack: the corner mask
+    exactly and the score map within FAST_RTOL through ``score_out``; the
+    cell picks equal except in cells whose top two plain scores lie within
+    FAST_RTOL; one launch a call."""
+    B, H, W = img.shape
+    Gy, Gx = H // cell, W // cell
+    score_out = torch.full_like(img, -1.0)
+    before = _cuda.launch_counts["fast_grid_corners"]
+    got = tfast.detect_grid_corners(img, thr, cell, occupied, score_out=score_out)
+    assert _cuda.launch_counts["fast_grid_corners"] == before + 1
+    want = tfast.detect_grid_corners_reference(img, thr, cell, occupied)
+    smap = tfast.fast_score_map(img, thr)[:, : Gy * cell, : Gx * cell]
+    kmap = score_out[:, : Gy * cell, : Gx * cell]
+    torch.cuda.synchronize()
+    assert torch.equal(kmap > 0, smap > 0)
+    assert bool(((kmap - smap).abs() <= FAST_RTOL * smap).all())
+    assert bool((score_out[:, Gy * cell :] == -1.0).all()) and bool((score_out[:, :, Gx * cell :] == -1.0).all())
+    tiles = smap.reshape(B, Gy, cell, Gx, cell).transpose(2, 3).reshape(B, Gy * Gx, cell * cell)
+    top = torch.topk(tiles, 2, dim=-1).values
+    near = (top[..., 0] > 0) & (top[..., 0] - top[..., 1] <= FAST_RTOL * top[..., 0])
+    same = (got.valid == want.valid) & (got.xy == want.xy).all(-1)
+    assert bool((same | near).all()), f"{int((~same & ~near).sum())} cells differ outside near ties"
+    assert torch.allclose(got.score, want.score, rtol=FAST_RTOL, atol=0)
+    if expect_no_ties:
+        assert int(near.sum()) == 0
+    assert got.xy.shape == (B, Gy * Gx, 2) and got.valid.dtype == torch.bool
+    assert int(want.valid.sum()) > 0
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("occupied", [False, True])
+@pytest.mark.parametrize("thr", [7.0, 10.0])
+@pytest.mark.parametrize("cell", [16, 8])
+@pytest.mark.parametrize("H,W", [(480, 752), (100, 130)])
+@pytest.mark.parametrize("kind", ["rendered", "random"])
+def test_fast_grid_corners_kernel_matches_plain(cuda_device, rendered_frames, kind, H, W, cell, thr, occupied):
+    img = _fast_images(kind, H, W, rendered_frames).to(cuda_device)
+    B = img.shape[0]
+    occ = None
+    if occupied:
+        rng = np.random.default_rng(cell + int(thr))
+        occ = torch.as_tensor(rng.uniform(size=(B, H // cell, W // cell)) < 0.3, device=cuda_device)
+    _hold_fast(img, thr, cell, occ, expect_no_ties=kind == "rendered")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", [4, 5, 12, 32, 40, 150])
+def test_fast_grid_corners_kernel_other_cells(cuda_device, cell):
+    """Cells of any size: narrow groups, one cell a block, and cells walked
+    in several 32 x 128 sub-tiles; W not a multiple of 4 (scalar loads)."""
+    img = torch.as_tensor(np.stack([_texture(s, 330, 461) for s in (3, 4)]), device=cuda_device)
+    _hold_fast(img, 7.0, cell, None, expect_no_ties=False)
+
+
+@pytest.mark.cuda
+def test_fast_grid_corners_kernel_broadcast_stack(cuda_device, rendered_frames):
+    """A broadcast stack is scored once, as one image, and each lane's
+    ``occupied`` still applies."""
+    one = rendered_frames[1].to(cuda_device)
+    stack = one.expand(4, *one.shape)
+    occ = torch.as_tensor(np.random.default_rng(2).uniform(size=(4, 30, 47)) < 0.3, device=cuda_device)
+    before = _cuda.launch_counts["fast_grid_corners"]
+    got = tfast.detect_grid_corners(stack, 7.0, 16, occ)
+    assert _cuda.launch_counts["fast_grid_corners"] == before + 1
+    want = tfast.detect_grid_corners_reference(one.expand(4, *one.shape).contiguous(), 7.0, 16, occ)
+    assert torch.equal(got.valid, want.valid) and torch.equal(got.xy, want.xy)
+    assert torch.allclose(got.score, want.score, rtol=FAST_RTOL, atol=0)
+
+
+@pytest.mark.cuda
+def test_fast_grid_corners_kernel_rejects_bad_input(cuda_device):
+    img = torch.rand((2, 64, 80), device=cuda_device) * 255
+    with pytest.raises(TypeError):
+        tfast.detect_grid_corners(img.double(), 7.0, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfast.detect_grid_corners(img.transpose(-1, -2), 7.0, 16)
+    with pytest.raises(ValueError, match="occupied"):
+        tfast.detect_grid_corners(img, 7.0, 16, torch.zeros((2, 4, 4), dtype=torch.bool, device=cuda_device))
+    with pytest.raises(TypeError):
+        tfast.detect_grid_corners(img, 7.0, 16, torch.zeros((2, 4, 5), dtype=torch.uint8, device=cuda_device))

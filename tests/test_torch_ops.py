@@ -161,3 +161,59 @@ def test_fast():
     np.testing.assert_array_equal(ct.valid.numpy(), np.asarray(cj.valid))
     np.testing.assert_array_equal(ct.xy.numpy(), np.asarray(cj.xy))
     np.testing.assert_allclose(ct.score.numpy(), np.asarray(cj.score), rtol=0, atol=1e-4)
+
+
+def _run9_doubled_word(code):
+    """The kernel's arc test (csrc/fast_grid_corners.cu:has_run9) in numpy:
+    a circular run of >= 9 set bits in each 16-bit ``code``."""
+    w = code.astype(np.uint32) | (code.astype(np.uint32) << 16)
+    m = w & (w >> 1)
+    m &= m >> 2
+    m &= m >> 4
+    m &= w >> 8
+    return (m & 0xFFFF) != 0
+
+
+def test_doubled_word_arc_test_matches_has_arc_on_every_mask():
+    """All 65,536 circle masks: the kernel's doubled-word 9-run test
+    against ``_has_arc``'s four rolls, exactly; and every mask with a run
+    passes the kernel's pre-test (two neighbouring compass points 0, 4, 8,
+    12 set), so the pre-test drops no corner."""
+    code = np.arange(1 << 16, dtype=np.uint32).reshape(256, 256)
+    planes = torch.as_tensor(((code[None] >> np.arange(16)[:, None, None]) & 1).astype(bool))
+    want = tfast._has_arc(planes).numpy()
+    got = _run9_doubled_word(code)
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < want.size
+    a, b, c, d = ((code >> k) & 1 == 1 for k in (0, 4, 8, 12))
+    compass_pair = (a & b) | (b & c) | (c & d) | (d & a)
+    assert not (want & ~compass_pair).any()
+
+
+def test_detect_grid_corners_on_cpu_is_the_plain_version_and_launches_nothing():
+    from msckf_stereo_c_torch.ops import _cuda
+
+    img = torch.as_tensor(np.stack([_image(s, 100, 130) for s in (6, 7)]))
+    occ = torch.as_tensor(np.random.default_rng(8).uniform(size=(2, 12, 16)) < 0.3)
+    score_out = torch.full_like(img, -1.0)
+    before = dict(_cuda.launch_counts)
+    got = tfast.detect_grid_corners(img, 7.0, 8, occ, score_out=score_out)
+    assert _cuda.launch_counts == before
+    want = tfast.detect_grid_corners_reference(img, 7.0, 8, occ)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(score_out[:, :96, :128], tfast.fast_score_map(img, 7.0)[:, :96, :128])
+    assert bool((score_out[:, 96:] == -1.0).all()) and bool((score_out[:, :, 128:] == -1.0).all())
+
+
+def test_detect_grid_corners_checks_its_arguments():
+    img = torch.as_tensor(_image(9, 64, 80))
+    with pytest.raises(ValueError, match="occupied"):
+        tfast.detect_grid_corners(img, 7.0, 16, torch.zeros((4, 4), dtype=torch.bool))
+    with pytest.raises(ValueError, match="score_out"):
+        tfast.detect_grid_corners(img, 7.0, 16, score_out=torch.zeros((64, 81)))
+    with pytest.raises(ValueError, match="cell"):
+        tfast.detect_grid_corners(img, 7.0, 0)
+    stack = img.expand(3, 64, 80)
+    with pytest.raises(ValueError, match="broadcast"):
+        tfast.detect_grid_corners(stack, 7.0, 16, score_out=torch.zeros((3, 64, 80)))
