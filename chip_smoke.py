@@ -20,7 +20,9 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ``resample_template`` again at one and three bf16 passes against their
    plain versions at the same passes, with the same bars, and their
    device times; ``fast_grid_corners`` on B = 1 and 512 presmoothed bench
-   frames against its plain version (``fast_rows``);
+   frames against its plain version (``fast_rows``); ``qr_compress`` on
+   stacked textbook-update rows at the eval cell's (512, 2560, 142) in
+   float32 and at B=4 in float64 against ``torch.linalg.qr`` (``qr_rows``);
 4. main path: ``run_vio_sequence`` over the bench scene (752x480 stereo,
    the configuration ``bench.py`` runs, B=1) with the kernel launch counts
    zeroed just before and read just after (7 ``lk_corr_align``, 4
@@ -34,7 +36,9 @@ Phases, each of which fails the run (exit code 1) if it fails:
    'cholesky' and 'schur' with exact solves and 'schur' with 10
    Newton-Schulz iterations in float32, 'qr' and 'cholesky' in float64):
    ATE under 0.13 m, frames/s, host syncs by call site, launches exactly
-   7 / 4 / 1 / 1 a frame, the float64 methods within 1e-4 m of each other, and
+   7 / 4 / 1 / 1 a frame (and under 'qr' one ``qr_compress`` a lost-track
+   update and a camera prune: T to 2T), the float64 methods within 1e-4 m
+   of each other, and
    ``run_vio_sequence(internals_at=INTERNALS_AT)`` with every key of the
    dump and the poses of the run without it;
 7. profile: the last N_TAIL bench frames again, from the state the frames
@@ -285,6 +289,12 @@ KERNEL_SOURCES = {
     "fast_grid_corners": (
         "msckf_stereo_c_torch/csrc/fast_grid_corners.cu",
         "msckf_stereo_c_tpu/ops/fast.py:28",
+    ),
+    # No Pallas kernel: the jnp.linalg.qr of the textbook update's
+    # compression, which XLA lowered on the TPU.
+    "qr_compress": (
+        "msckf_stereo_c_torch/csrc/qr_compress.cu",
+        "msckf_stereo_c_tpu/models/update.py:compress_measurements",
     ),
 }
 
@@ -549,7 +559,7 @@ def phase_kernels(img0, img1, fcfg):
     rows += resample_rows(pyr_a[0], pyr_b[0], corners, fcfg)
     rows += lk_rows("K1", pyr_a[0], pyr_b[0], fcfg, "none")
     rows += align_rows(pyr_a, pyr_b, corners, fcfg, "none")
-    return rows + fast_rows(img0, fcfg)
+    return rows + fast_rows(img0, fcfg) + qr_rows()
 
 
 FAST_BATCHES = (1, 512)  # the live cell's lanes and the eval cell's
@@ -632,6 +642,96 @@ def fast_rows(img0, fcfg):
               f"{_fmt(dev_ms)}), plain {plain_ms:.4f} ms (device {_fmt(chain_ms)}), bound {b:.5f} ms ({by}); "
               f"peak {kernel_mem / 2**30:.4f} GiB against the plain version's {plain_mem / 2**30:.4f} GiB")
         del imgs
+    return rows
+
+
+# The eval cell's compression: B lanes of K = 32 tracks of 4M = 80 rows
+# (M = 20 camera slots), n = 21 + 6M + 1 = 142 columns.
+QR_SHAPE = (512, 32, 20)
+# R^T R against A^T A (float64), over max |A^T A| of each lane, at the eval
+# cell's (512, 2560, 142): the kernel read 6.9e-7 in float32 and 2.2e-15 in
+# float64, torch.linalg.qr 3.3e-7 and 1.7e-15; the limits keep over 10x of
+# room, and Householder's worst-case growth, sqrt(m n) eps (7e-5 in
+# float32), lies past the float32 one.
+QR_RTOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def qr_problem(B: int, K: int, M: int, seed: int = 0, dtype=None, device=None):
+    """Stacked rows (B, K * 4M, 22 + 6M) shaped as the textbook update's
+    [H | r]: the 21 IMU columns zero, each lane's first 1..K tracks with
+    4n - 3 nonzero rows over its n in 2..M observed camera slots, the other
+    tracks' rows zero, lane 0 with no track at all."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    D = 21 + 6 * M
+    A = np.zeros((B, K, 4 * M, D + 1))
+    for b in range(1, B):
+        for k in range(int(rng.integers(1, K + 1))):
+            slots = np.sort(rng.choice(M, size=int(rng.integers(2, M + 1)), replace=False))
+            rows = 4 * slots.size - 3
+            for s_ in slots:
+                A[b, k, :rows, 21 + 6 * s_: 27 + 6 * s_] = rng.normal(size=(rows, 6))
+            A[b, k, :rows, D] = 1e-3 * rng.normal(size=rows)
+    return torch.as_tensor(A.reshape(B, K * 4 * M, D + 1), dtype=dtype or torch.float32, device=device)
+
+
+def qr_gram_gap(A, R):
+    """Per lane, max |R^T R - A^T A| over max |A^T A| (float64; 0 for an
+    empty lane)."""
+    import torch
+
+    A64, R64 = A.double(), R.double()
+    G = A64.transpose(-1, -2) @ A64
+    gap = (R64.transpose(-1, -2) @ R64 - G).abs().amax((-2, -1))
+    return gap / G.abs().amax((-2, -1)).clamp_min(1e-300)
+
+
+def qr_rows(shape=QR_SHAPE):
+    """``qr_compress`` against ``torch.linalg.qr`` (its plain version) on
+    ``qr_problem`` rows: in float32 at the eval cell's (B, K, M), and in
+    float64 at B=4; R^T R within QR_RTOL of A^T A for both, the empty lane
+    exactly 0, one launch a call.  Per-call and device time; the bound,
+    Householder's 2mn^2 - 2n^3/3 operations a lane against one read of A
+    and R written; the plain version's per-call and device time (one
+    cuSOLVER geqrf per lane, launched from the host)."""
+    import torch
+
+    from msckf_stereo_c_torch.ops import _cuda
+    from msckf_stereo_c_torch.ops.linalg import qr_r, qr_r_reference
+
+    dev = torch.device("cuda")
+    B, K, M = shape
+    rows = []
+    for dname, lanes in (("float32", B), ("float64", 4)):
+        A = qr_problem(lanes, K, M, seed=lanes, dtype=getattr(torch, dname), device=dev)
+        _, m, n = A.shape
+        before = _cuda.launch_counts["qr_compress"]
+        R = qr_r(A)
+        check(_cuda.launch_counts["qr_compress"] == before + 1, "qr_compress: not one launch a call")
+        R_plain = qr_r_reference(A)
+        torch.cuda.synchronize()
+        gap = float(qr_gram_gap(A, R).max())
+        plain_gap = float(qr_gram_gap(A, R_plain).max())
+        check(gap <= QR_RTOL[dname], f"qr_compress {dname}: R^T R {gap:.3g} from A^T A (limit {QR_RTOL[dname]})")
+        check(bool((R[0] == 0).all()), f"qr_compress {dname}: the empty lane's R is not 0")
+        check(bool(torch.equal(R, R.triu())), f"qr_compress {dname}: R is not upper triangular")
+        del R, R_plain
+        ms = cuda_ms(lambda: qr_r(A), reps=10)
+        dev_ms = device_ms(lambda: qr_r(A), "qr_compress_kernel", reps=10)
+        plain_ms = cuda_ms(lambda: qr_r_reference(A), reps=2, warmup=1)
+        plain_dev = device_ms_per_call(lambda: qr_r_reference(A), reps=2)
+        size = A.element_size()
+        b, by = bound_ms(lanes * (m * n + n * n) * size, lanes * (2.0 * m * n * n - 2.0 * n ** 3 / 3.0))
+        rows.append(dict(name="qr_compress", dtype=dname, B=lanes, m=m, n=n, max_rel_gram_gap=gap,
+                         plain_max_rel_gram_gap=plain_gap, max_abs_err=gap, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, plain_device_ms=plain_dev, library_ms=None, bound_ms=b, bound_by=by))
+        print(f"[qr] {dname} B={lanes} m={m} n={n}: R^T R within {gap:.3g} of A^T A (plain {plain_gap:.3g}), "
+              f"empty lane 0; per call {ms:.4f} ms (device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms (device "
+              f"{_fmt(plain_dev)}), bound {b:.5f} ms ({by})")
+        del A
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1360,7 +1460,12 @@ def phase_methods(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
         for site, per_frame in list(runs[label]["sync_sites"].items())[:4]:
             print(f"[methods]   {per_frame:.2f}/frame at {site}")
         check(ate < 0.13, f"methods: ATE {ate} m under {label} is above the 0.13 m bar")
-        check(counts == {k: v * T for k, v in want.items()},
+        # One compression a lost-track update, and one a camera prune.
+        n_qr = counts["qr_compress"]
+        check(T <= n_qr <= 2 * T if method == "qr" else n_qr == 0,
+              f"methods: {n_qr} qr_compress launches over {T} frames under {label}")
+        check({k: v for k, v in counts.items() if k != "qr_compress"}
+              == {k: v * T for k, v in want.items() if k != "qr_compress"},
               f"methods: launches {counts} under {label}, expected per frame {want}")
     f64 = [label for label, _, _, dname in METHOD_RUNS if dname == "float64"]
     pairs = {}
@@ -2940,6 +3045,7 @@ def main(argv=None) -> int:
                                    and r["N"] == 144 and r["norm"] == "gain"),
         "resample_template": next(r for r in rows if r["name"] == "resample_template"),
         "fast_grid_corners": next(r for r in rows if r["name"] == "fast_grid_corners" and r["B"] == 1),
+        "qr_compress": next(r for r in rows if r["name"] == "qr_compress" and r["dtype"] == "float32"),
     }
     # Launch counts come from the bench path, lk_corr_align_gain's from the
     # stress path (the bench path runs klt_norm='none', which never launches

@@ -159,11 +159,13 @@ def _gate_and_update(
             w = take(w, idx)
     sw = None if w is None else torch.sqrt(w).to(pos.dtype)
     if method != "schur":
-        jacs = track_jacobians(pos, obs, obs_mask, state.cams, state.gravity, params.R_c0_c1, params.t_c0_c1)
-        if sw is not None:
-            jacs = jacs._replace(H_o=jacs.H_o * sw[..., None, None], r_o=jacs.r_o * sw[..., None])
-        gamma = gating_scores(jacs, state.P, params.sigma2)
-        use = use & (gamma < params.chi2_table[dof])
+        with span("filter.nullspace"):
+            jacs = track_jacobians(pos, obs, obs_mask, state.cams, state.gravity, params.R_c0_c1, params.t_c0_c1)
+            if sw is not None:
+                jacs = jacs._replace(H_o=jacs.H_o * sw[..., None, None], r_o=jacs.r_o * sw[..., None])
+        with span("filter.gating"):
+            gamma = gating_scores(jacs, state.P, params.sigma2)
+            use = use & (gamma < params.chi2_table[dof])
         with span("filter.update"):
             return measurement_update(state, jacs, use, params.sigma2, method=method)
 

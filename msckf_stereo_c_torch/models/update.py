@@ -25,8 +25,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.linalg import cho_solve, cholesky_nan, inv3x3, ns_posdef_inverse, solve_lower, solve_nan
+from ..ops.linalg import cho_solve, cholesky_nan, inv3x3, ns_posdef_inverse, qr_r, solve_lower, solve_nan
 from ..utils.lie import skew
+from ..utils.timing import span
 from ..utils.quaternion import jpl_to_rot, quat_multiply, small_angle_quaternion
 from .state import CamStates, FilterState
 
@@ -209,16 +210,19 @@ def compress_measurements(jacs: TrackJacobians, use_mask: torch.Tensor, method: 
     with R_t^T R_t = H^T H and R_t^T r_t = H^T r.
 
     ``'qr'`` takes both from one reduced QR of [H | r] (its first D
-    reflectors are H's, so the last column's top D entries are Q1^T r);
-    ``'cholesky'`` from the jittered normal equations.  R_t is unique up
-    to the signs of its rows, which the EKF update does not see."""
+    reflectors are H's, so the last column's top D entries are Q1^T r):
+    on the card one launch of the hand kernel ``qr_compress`` over every
+    lane (``ops/linalg.py:qr_r``), on the CPU ``torch.linalg.qr``.
+    ``'cholesky'`` takes them from the jittered normal equations.  R_t is
+    unique up to the signs of its rows (and, where H is rank deficient, up
+    to an orthogonal factor), which the EKF update does not see."""
     dtype = jacs.H_o.dtype
     B, K, R, D = jacs.H_o.shape
     m = use_mask.to(dtype)
     H = (jacs.H_o * m[..., None, None]).reshape(B, K * R, D)
     r = (jacs.r_o * m[..., None]).reshape(B, K * R)
     if method == "qr":
-        Ra = torch.linalg.qr(torch.cat([H, r[..., None]], dim=-1), mode="r").R
+        Ra = qr_r(torch.cat([H, r[..., None]], dim=-1))
         return Ra[..., :D, :D], Ra[..., :D, D]
     if method == "cholesky":
         Ht = H.transpose(-1, -2)
@@ -414,7 +418,8 @@ def measurement_update(
 ) -> FilterState:
     """Compressed EKF update of each lane (reference measurementUpdate).  A
     lane with no selected track is left unchanged by ``'qr'`` (R_t = 0)."""
-    R_t, r_t = compress_measurements(jacs, use_mask, method=method)
+    with span("filter.compress"):
+        R_t, r_t = compress_measurements(jacs, use_mask, method=method)
     return _sqrt_update(state, R_t, r_t, state.P, state.P, sigma2)
 
 

@@ -5,10 +5,29 @@ filter's exact paths, batched over leading dims.
 The factorizations follow ``jnp.linalg``: a matrix that does not factor
 gives NaN where torch would raise.  They never check an error code, so on
 the card they queue without a host read; a NaN gating score then fails its
-chi-square test, as in the JAX package."""
+chi-square test, as in the JAX package.
+
+``qr_r`` (the R factor of a thin QR of every lane's matrix) launches the
+hand-written kernel ``qr_compress`` (``csrc/qr_compress.cu``) on a CUDA
+tensor and runs its plain version, ``qr_r_reference``
+(``torch.linalg.qr``), on a CPU one."""
 from __future__ import annotations
 
+import collections
+import math
+
 import torch
+
+from ..utils.timing import profiling
+from . import _cuda
+
+# The work of each ``qr_r`` call made while a profiler records, newest
+# last: (W, element size in bytes), W a (..., 2) int32 tensor on the
+# call's device holding each matrix's rows and columns that have a nonzero
+# (or NaN) entry, the block whose QR is its least work.  The kernel counts
+# them in its pass; on the CPU two reductions do.  Nothing is kept while no
+# profiler records.
+qr_work_log: collections.deque = collections.deque(maxlen=256)
 
 
 def _safe_inv(det: torch.Tensor) -> torch.Tensor:
@@ -102,3 +121,54 @@ def solve_nan(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     NaN where A is singular."""
     X, info = torch.linalg.solve_ex(A, B, check_errors=False)
     return torch.where((info == 0)[..., None, None], X, float("nan"))
+
+
+def qr_r_reference(A: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``qr_compress``: the R factor of a reduced QR of
+    each (m, n) matrix of ``A`` (..., m, n), (..., min(m, n), n)."""
+    return torch.linalg.qr(A, mode="r").R
+
+
+def qr_r(A: torch.Tensor) -> torch.Tensor:
+    """(..., n, n) upper-triangular R with R^T R = A^T A for each (m, n)
+    matrix of ``A`` (..., m, n), float32 or float64: on a CUDA tensor one
+    launch of ``qr_compress`` over every matrix, on a CPU tensor
+    ``qr_r_reference`` (whose R has min(m, n) rows; the same (n, n) where
+    m >= n).  R is one of the factors that differ by the signs of their rows
+    (and, where A is rank deficient, by more); every one gives the same
+    R^T R, and a matrix of zeros gives R = 0.  A matrix holding a NaN gives
+    a non-finite R, as the plain version does.  While a profiler records,
+    each call's nonzero rows and columns go to ``qr_work_log``."""
+    record = profiling()
+    if A.device.type == "cpu":
+        if record:
+            nz = A != 0
+            W = torch.stack([nz.any(-1).sum(-1), nz.any(-2).sum(-1)], -1).to(torch.int32)
+            qr_work_log.append((W, A.element_size()))
+        return qr_r_reference(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    if A.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"qr_r takes float32 or float64, got {A.dtype}")
+    lead, (m, n) = A.shape[:-2], A.shape[-2:]
+    # One thread a column, and the packed R, two reflectors of ``chunk``
+    # rows and two 8-byte row masks in one block's shared memory (227 KB).
+    chunk = 32 if A.dtype == torch.float64 else 64
+    if n > 1024 or (n * (n + 1) // 2 + 2 * chunk + 2) * A.element_size() + 16 > 232448:
+        raise ValueError(f"qr_compress takes at most the columns one block holds; got n={n} in {A.dtype}")
+    B = math.prod(lead)
+    R = torch.empty(lead + (n, n), dtype=A.dtype, device=A.device)
+    W = None
+    if record:
+        W = torch.empty(lead + (2,), dtype=torch.int32, device=A.device)
+        qr_work_log.append((W, A.element_size()))
+    if B == 0 or n == 0:  # the kernel launches nothing for it, so nothing is counted
+        if W is not None:
+            W.zero_()
+        return R
+    if B > 2**31 - 1 or m > 2**31 - 1:
+        raise ValueError(f"qr_compress takes at most 2^31 - 1 matrices and rows, got {B} and {m}")
+    A = A.contiguous()
+    _cuda.launch("qr_compress", A.data_ptr(), R.data_ptr(), None if W is None else W.data_ptr(), B, m, n,
+                 int(A.dtype == torch.float64), torch.cuda.current_stream(A.device).cuda_stream)
+    return R

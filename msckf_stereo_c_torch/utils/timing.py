@@ -29,6 +29,11 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 _NO_SPAN = contextlib.nullcontext()
 
 
+def profiling() -> bool:
+    """Whether a profiler records on this thread."""
+    return _profiler_enabled()
+
+
 def span(name: str):
     """A ``record_function(name)`` range while a profiler records; while
     none does, a shared null context after one check of the flag."""

@@ -1,4 +1,4 @@
-"""The port's eight hand-written CUDA kernels, their wrappers and their
+"""The port's nine hand-written CUDA kernels, their wrappers and their
 plain versions.
 
 The tests marked ``cuda`` hold each kernel against its plain version on the
@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import lk_trace
 from msckf_stereo_c_torch.config import matmul_precision_scope
 from msckf_stereo_c_torch.ops import _cuda
@@ -671,3 +672,83 @@ def test_fast_grid_corners_kernel_rejects_bad_input(cuda_device):
         tfast.detect_grid_corners(img, 7.0, 16, torch.zeros((2, 4, 4), dtype=torch.bool, device=cuda_device))
     with pytest.raises(TypeError):
         tfast.detect_grid_corners(img, 7.0, 16, torch.zeros((2, 4, 5), dtype=torch.uint8, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lanes", [(torch.float32, 512), (torch.float64, 4)])
+def test_qr_compress_kernel_matches_its_plain_version(cuda_device, dtype, lanes):
+    """``qr_compress`` on the textbook update's stacked rows at the eval
+    cell's (B, 2560, 142) (``chip_smoke.qr_problem``: 21 zero columns, tracks
+    of 5-77 rows, zero padding, an empty lane 0), one launch: R upper
+    triangular, R^T R within ``chip_smoke.QR_RTOL`` of A^T A and of the
+    plain version's R^T R, the empty lane's R exactly 0."""
+    from msckf_stereo_c_torch.ops import linalg as tlinalg
+
+    A = chip_smoke.qr_problem(lanes, 32, 20, seed=lanes, dtype=dtype, device=cuda_device)
+    before = _cuda.launch_counts["qr_compress"]
+    R = tlinalg.qr_r(A)
+    assert _cuda.launch_counts["qr_compress"] == before + 1
+    assert R.shape == (lanes, 142, 142) and torch.equal(R, R.triu())
+    rtol = chip_smoke.QR_RTOL[str(dtype).split(".")[-1]]
+    assert float(chip_smoke.qr_gram_gap(A, R).max()) <= rtol
+    plain = tlinalg.qr_r_reference(A).double()
+    G = plain.transpose(-1, -2) @ plain
+    gap = (R.double().transpose(-1, -2) @ R.double() - G).abs().amax((-2, -1))
+    assert float((gap / G.abs().amax((-2, -1)).clamp_min(1e-300)).max()) <= rtol
+    assert bool((R[0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_qr_compress_kernel_spreads_nan_as_its_plain_version(cuda_device):
+    """A NaN row, a single NaN entry in the last chunk and a NaN row in an
+    otherwise empty lane each make that lane's R non-finite, as the plain
+    version's; every other lane stays finite and within ``QR_RTOL``."""
+    from msckf_stereo_c_torch.ops import linalg as tlinalg
+
+    A = chip_smoke.qr_problem(6, 32, 20, seed=6, dtype=torch.float32)
+    A[1, 3, :] = float("nan")
+    A[2, 2500, 40] = float("nan")
+    A[0, 70, :] = float("nan")
+    plain = tlinalg.qr_r_reference(A)
+    R = tlinalg.qr_r(A.to(cuda_device)).cpu()
+    want = torch.isfinite(plain).flatten(1).all(-1)
+    assert want.tolist() == [False, False, False, True, True, True]
+    assert torch.equal(torch.isfinite(R).flatten(1).all(-1), want)
+    assert float(chip_smoke.qr_gram_gap(A[3:], R[3:]).max()) <= chip_smoke.QR_RTOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lanes", [(torch.float32, 512), (torch.float64, 4)])
+def test_qr_compress_kernel_counts_nonzero_rows_and_columns(cuda_device, dtype, lanes):
+    """Under a profiler the kernel also writes each lane's rows and columns
+    that hold a nonzero (or NaN) entry, at the eval cell's (B, 2560, 142),
+    equal to a count in torch, into ``qr_work_log``; R is bit for bit the
+    R of a launch that counts nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from msckf_stereo_c_torch.ops import linalg as tlinalg
+
+    A = chip_smoke.qr_problem(lanes, 32, 20, seed=lanes + 1, dtype=dtype, device=cuda_device)
+    A[1, 2559, 0] = float("nan")
+    plain = tlinalg.qr_r(A)
+    with profile(activities=[ProfilerActivity.CPU]):
+        R = tlinalg.qr_r(A)
+    W, elem = tlinalg.qr_work_log[-1]
+    nz = A != 0
+    want = torch.stack([nz.any(-1).sum(-1), nz.any(-2).sum(-1)], -1).to(torch.int32)
+    assert W.device == A.device and elem == A.element_size()
+    assert torch.equal(W, want)
+    assert W[0].tolist() == [0, 0]
+    assert torch.equal(R.nan_to_num(), plain.nan_to_num())
+
+
+@pytest.mark.cuda
+def test_qr_compress_kernel_rejects_bad_input(cuda_device):
+    from msckf_stereo_c_torch.ops import linalg as tlinalg
+
+    with pytest.raises(TypeError):
+        tlinalg.qr_r(torch.zeros((2, 8, 4), dtype=torch.float16, device=cuda_device))
+    with pytest.raises(ValueError, match="columns"):
+        tlinalg.qr_r(torch.zeros((1, 8, 400), device=cuda_device))
+    empty = tlinalg.qr_r(torch.zeros((0, 8, 4), device=cuda_device))
+    assert empty.shape == (0, 4, 4)
