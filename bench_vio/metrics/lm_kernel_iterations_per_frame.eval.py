@@ -1,0 +1,9 @@
+"""LM steps of the triangulation per batched frame, as the program counts
+them: each ``filter.triangulate`` call's largest per-track count
+(``lm_work_log``), summed over the frame's calls; the cells that report
+``lane_frames_per_s``."""
+from bench_vio.trace.lm_work import lm_kernel_iterations_per_frame
+
+
+def read(run):
+    return lm_kernel_iterations_per_frame(run)

@@ -3,22 +3,29 @@
 tracks of every sequence lane in place of ``vmap``.
 
 Inputs carry a leading sequence axis B: tracks (B, K, ...) seen from each
-lane's own camera window (B, M, ...).  The LM loop runs on the B x K tracks
-flattened into one axis.  The JAX loop runs, under ``vmap``, until every
-track has converged and keeps the finished ones frozen; here each track's
-update is masked the same way and the loop stops once no track of any lane
-is active (one host read per iteration for all lanes).
+lane's own camera window (B, M, ...).  The JAX loop runs, under ``vmap``,
+until every track has converged, each track stopping on its own.
+
+``triangulate_tracks`` launches the hand-written kernel ``lm_triangulate``
+(``csrc/lm_triangulate.cu``: one warp a track, each track's whole LM solve
+in one launch, no host read) on CUDA tensors, and runs its plain version,
+``triangulate_tracks_reference``, on CPU ones: the LM loop over the B x K
+tracks flattened into one axis, each track's update masked as JAX's, the
+loop stopping once no track of any lane is active (one host read per
+iteration for all lanes).
 """
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
 
+from ..ops import _cuda
 from ..ops.linalg import solve3x3
 from ..utils.lanes import take
 from ..utils.quaternion import jpl_to_rot
-from ..utils.timing import span
+from ..utils.timing import profiling, span
 
 _LM_ITERS = 30
 _HUBER_EPS = 0.01
@@ -26,6 +33,13 @@ _LAMBDA_INIT = 1e-3
 _LAMBDA_MIN = 1e-10
 _LAMBDA_MAX = 1e12
 _PRECISION = 5e-7
+_MAX_SLOTS = 64  # the kernel's camera window: 2 slots a lane of a warp
+
+# Each ``triangulate_tracks`` call's LM steps per track while a profiler
+# records, newest last: an int32 (B, K) tensor on the call's device (the
+# kernel counts them; on the CPU the plain loop does).  Nothing is kept
+# while no profiler records.
+lm_work_log: collections.deque = collections.deque(maxlen=256)
 
 
 class TriangulationResult(NamedTuple):
@@ -101,7 +115,7 @@ def _normal_equations(R, t, w_valid, x, z):
     return A, b
 
 
-def triangulate_tracks(
+def triangulate_tracks_reference(
     obs: torch.Tensor,  # (B, K, M, 4) normalized stereo observations
     obs_valid: torch.Tensor,  # (B, K, M)
     cam_q: torch.Tensor,  # (B, M, 4)
@@ -109,10 +123,12 @@ def triangulate_tracks(
     R_c0_c1: torch.Tensor,
     t_c0_c1: torch.Tensor,
     active: torch.Tensor | None = None,  # (B,) lanes whose tracks iterate
+    iters: torch.Tensor | None = None,  # (B, K) int32, receives each track's LM steps
 ) -> TriangulationResult:
-    """Damped LM triangulation of the K tracks of all B lanes at once
-    (reference Feature::initializePosition); the tracks of a lane outside
-    ``active`` skip the LM steps.  Results are (B, K, ...)."""
+    """Plain version of ``lm_triangulate``: the damped LM triangulation of
+    the K tracks of all B lanes at once (reference
+    Feature::initializePosition); the tracks of a lane outside ``active``
+    skip the LM steps.  Results are (B, K, ...)."""
     Bl, K0 = obs_valid.shape[:2]
     R, t, Rb, tb, i0 = _stereo_pose_stack(cam_q, cam_p, obs_valid, R_c0_c1, t_c0_c1)
     M = obs.shape[2]
@@ -147,8 +163,11 @@ def triangulate_tracks(
     else:
         active = active[:, None].expand(Bl, K0).reshape(K)
     eye3 = torch.eye(3, dtype=dtype, device=obs.device)
+    steps = None if iters is None else torch.zeros(K, dtype=torch.int32, device=obs.device)
 
     for _ in range(_LM_ITERS):
+        if steps is not None:
+            steps += active
         A, b = _normal_equations(R, t, w_valid, x, z)
         delta = solve3x3(A + lam[:, None, None] * eye3, b)
         x_new = x - delta
@@ -182,7 +201,70 @@ def triangulate_tracks(
     valid = valid & (torch.sum(obs_valid, dim=1) >= 2)
     p_base = p_base.reshape(Bl, K0, 3)
     pos_w = (Rb @ p_base[..., None])[..., 0] + tb
+    if iters is not None:
+        iters.copy_(steps.reshape(Bl, K0))
     return TriangulationResult(pos_w=pos_w, valid=valid.reshape(Bl, K0), base_slot=i0.reshape(Bl, K0))
+
+
+def triangulate_tracks(
+    obs: torch.Tensor,  # (B, K, M, 4) normalized stereo observations
+    obs_valid: torch.Tensor,  # (B, K, M)
+    cam_q: torch.Tensor,  # (B, M, 4)
+    cam_p: torch.Tensor,  # (B, M, 3)
+    R_c0_c1: torch.Tensor,
+    t_c0_c1: torch.Tensor,
+    active: torch.Tensor | None = None,  # (B,) lanes whose tracks iterate
+) -> TriangulationResult:
+    """Damped LM triangulation of the K tracks of all B lanes at once
+    (reference Feature::initializePosition); the tracks of a lane outside
+    ``active`` skip the LM steps.  Results are (B, K, ...): pos_w in the
+    observations' dtype, valid bool, base_slot int64.  On a CUDA tensor one
+    launch of ``lm_triangulate`` (float32 or float64, M <= 64), with no
+    host read; on a CPU tensor ``triangulate_tracks_reference``.  While a
+    profiler records, each call's LM steps per track go to
+    ``lm_work_log``."""
+    Bl, K0, M = obs_valid.shape
+    iters = None
+    if profiling():
+        iters = torch.empty((Bl, K0), dtype=torch.int32, device=obs.device)
+        lm_work_log.append(iters)
+    if obs.device.type == "cpu":
+        return triangulate_tracks_reference(obs, obs_valid, cam_q, cam_p, R_c0_c1, t_c0_c1, active, iters)
+    if obs.device.type != "cuda":
+        raise ValueError(f"unsupported device {obs.device}")
+    dtype = obs.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"triangulate_tracks takes float32 or float64 observations, got {dtype}")
+    if obs_valid.dtype != torch.bool or (active is not None and active.dtype != torch.bool):
+        raise TypeError("obs_valid and active must be bool masks")
+    if any(t.dtype != dtype for t in (cam_q, cam_p, R_c0_c1, t_c0_c1)):
+        raise TypeError(f"triangulate_tracks: cameras and extrinsics must be in the observations' {dtype}")
+    shapes = ((obs, (Bl, K0, M, 4)), (cam_q, (Bl, M, 4)), (cam_p, (Bl, M, 3)), (R_c0_c1, (3, 3)),
+              (t_c0_c1, (3,)), (active, (Bl,)))
+    for t, want in shapes:
+        if t is not None and tuple(t.shape) != want:
+            raise ValueError(f"triangulate_tracks: expected shape {want}, got {tuple(t.shape)}")
+        if t is not None and t.device != obs.device:
+            raise ValueError("triangulate_tracks: every input must lie on the observations' device")
+    if not 1 <= M <= _MAX_SLOTS:
+        raise ValueError(f"lm_triangulate takes 1 to {_MAX_SLOTS} camera slots, got {M}")
+    pos_w = torch.empty((Bl, K0, 3), dtype=dtype, device=obs.device)
+    valid = torch.empty((Bl, K0), dtype=torch.bool, device=obs.device)
+    base_slot = torch.empty((Bl, K0), dtype=torch.int64, device=obs.device)
+    if Bl * K0 == 0:  # the kernel launches nothing for it, so nothing is counted
+        if iters is not None:
+            iters.zero_()
+        return TriangulationResult(pos_w=pos_w, valid=valid, base_slot=base_slot)
+    obs, obs_valid, cam_q, cam_p, R_c0_c1, t_c0_c1 = (
+        t.contiguous() for t in (obs, obs_valid, cam_q, cam_p, R_c0_c1, t_c0_c1))
+    active = None if active is None else active.contiguous()
+    _cuda.launch(
+        "lm_triangulate", obs.data_ptr(), obs_valid.data_ptr(), cam_q.data_ptr(), cam_p.data_ptr(),
+        R_c0_c1.data_ptr(), t_c0_c1.data_ptr(), None if active is None else active.data_ptr(), pos_w.data_ptr(),
+        valid.data_ptr(), base_slot.data_ptr(), None if iters is None else iters.data_ptr(), Bl * K0, K0, M,
+        int(dtype == torch.float64), torch.cuda.current_stream(obs.device).cuda_stream,
+    )
+    return TriangulationResult(pos_w=pos_w, valid=valid, base_slot=base_slot)
 
 
 def check_motion_tracks(

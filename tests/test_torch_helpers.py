@@ -100,6 +100,63 @@ def test_triangulate_track_and_check_motion(seed):
             bool(jtri.check_motion(jnp.asarray(obs), jnp.asarray(valid), jnp.asarray(q), jnp.asarray(p), thr))
 
 
+def _jax_lm_steps(monkeypatch, obs, valid, q, p, R01, t01):
+    """JAX's triangulation of tracks ``obs`` (K, M, 4) seen from one window,
+    and each track's ``it`` from its LM ``while_loop``, read by recording the
+    loop's final carry (x, lambda, cost, |delta|, it) through a wrapper of
+    ``jax.lax.while_loop`` for the call."""
+    import jax
+
+    real, carries = jax.lax.while_loop, []
+
+    def recorded(cond, body, init):
+        out = real(cond, body, init)
+        carries.append(out)
+        return out
+
+    def one(o, v):
+        carries.clear()
+        res = jtri.triangulate_track(o, v, *(jnp.asarray(x) for x in (q, p, R01, t01)))
+        (carry,) = [c for c in carries if len(c) == 5]
+        return res, carry[-1]
+
+    monkeypatch.setattr(jax.lax, "while_loop", recorded)
+    res, it = jax.vmap(one)(jnp.asarray(obs), jnp.asarray(valid))
+    monkeypatch.undo()
+    return res, np.asarray(it)
+
+
+@pytest.mark.parametrize("case", ["track0", "track1", "track2", "window"])
+def test_lm_steps_per_track_equal_jax_iterations(monkeypatch, case):
+    """The plain loop's per-track LM steps (``triangulate_tracks_reference``'s
+    count, what ``lm_work_log`` keeps on the CPU) equal the ``it`` of the JAX
+    package's per-track ``while_loop``, track by track: on the one-track
+    inputs above, and on a window of 24 tracks (``_lm_cases.lm_problem``;
+    its seed draws a track of each kind) with one observation and with
+    none, a landmark behind the cameras, NaN observations on observed slots,
+    and NaN on every unobserved slot, which ends the track after one step
+    in both (0 * NaN in the normal equations)."""
+    from _lm_cases import lm_problem
+    from msckf_stereo_c_torch.models.triangulation import triangulate_tracks_reference
+
+    if case == "window":
+        obs, valid, q, p, R01, t01, _ = (x.numpy() for x in lm_problem(1, 24, 8, seed=283, dtype=torch.float64))
+        obs, valid, q, p = obs[0], valid[0], q[0], p[0]
+    else:
+        obs, valid, q, p, R01, t01 = _track(int(case[-1]))
+        obs, valid = obs[None], valid[None]
+    steps = torch.empty((1, obs.shape[0]), dtype=torch.int32)
+    got = triangulate_tracks_reference(*(torch.tensor(x) for x in (obs[None], valid[None], q[None], p[None], R01, t01)),
+                                       iters=steps)
+    want, it = _jax_lm_steps(monkeypatch, obs, valid, q, p, R01, t01)
+    np.testing.assert_array_equal(steps[0].numpy(), it)
+    assert int(it.max()) >= 2
+    if case == "window":
+        unobserved_nan = (np.isnan(obs).any(-1) & ~valid).any(-1)
+        assert unobserved_nan.any() and (it[unobserved_nan] == 1).all()
+    np.testing.assert_array_equal(got.valid[0].numpy(), np.asarray(want.valid))
+
+
 def test_draw_feature_tracks_matches_jax(tmp_path):
     import cv2
 

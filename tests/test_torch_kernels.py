@@ -1,4 +1,4 @@
-"""The port's nine hand-written CUDA kernels, their wrappers and their
+"""The port's ten hand-written CUDA kernels, their wrappers and their
 plain versions.
 
 The tests marked ``cuda`` hold each kernel against its plain version on the
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import chip_smoke
+from _lm_cases import LM_F64_WIDEST_M, LM_POS_TOL, lm_hold, lm_kernel_calls, lm_pool, lm_problem
 from chip_smoke import lk_trace
 from msckf_stereo_c_torch.config import matmul_precision_scope
 from msckf_stereo_c_torch.ops import _cuda
@@ -752,3 +753,140 @@ def test_qr_compress_kernel_rejects_bad_input(cuda_device):
         tlinalg.qr_r(torch.zeros((1, 8, 400), device=cuda_device))
     empty = tlinalg.qr_r(torch.zeros((0, 8, 4), device=cuda_device))
     assert empty.shape == (0, 4, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,M", [(1, 20), (5, 20), (512, 20), (1, 40), (5, 40), (512, 40)])
+def test_lm_triangulate_kernel_matches_its_plain_version(cuda_device, dtype, B, M):
+    """``lm_triangulate`` against ``triangulate_tracks_reference`` on
+    ``_lm_cases.lm_pool``'s window of at least 16,384 tracks (random invalid
+    slots, tracks with one observation and with none, landmarks behind the
+    cameras, NaN observations on observed and on unobserved slots, every
+    fourth lane outside ``active``), launched once per B lanes, by
+    ``_lm_cases.lm_hold``: in float64 base slots, valid and steps equal on
+    every track and positions within 1e-8 m on every track valid in both;
+    in float32 base slots exact, valid on 99.9 % of the tracks, and steps,
+    converged positions beyond 1e-4 m and the widest converged gap no
+    further apart than twice the plain version's own spread under one
+    machine epsilon of its observations, plus a slack; M = 40 takes two
+    slots a lane."""
+    pool = lm_pool(B, 32, M, seed=B * M, dtype=dtype, device=cuda_device)
+    before = _cuda.launch_counts["lm_triangulate"]
+    got, steps, calls = lm_kernel_calls(pool, B)
+    assert _cuda.launch_counts["lm_triangulate"] == before + calls
+    assert got.pos_w.dtype == dtype and got.valid.dtype == torch.bool and got.base_slot.dtype == torch.int64
+    k, n, missed = lm_hold(pool, got, steps)
+    assert not missed, (missed, k, n)
+    inactive = ~pool[-1]
+    assert bool((steps[inactive] == 0).all()) and bool((steps[~inactive] >= 1).all())
+    assert bool(got.valid.any()) and not bool(got.valid.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lm_triangulate_kernel_stops_on_a_non_finite_unobserved_slot(cuda_device, dtype):
+    """A NaN or infinite observation on a slot without an observation makes
+    the first step NaN in the plain version (its einsum weighs the slot by
+    0), which ends the track at its two-view guess: so it does in the
+    kernel, with the same valid and base slot and the position within
+    ``LM_POS_TOL``.  The other tracks keep their steps."""
+    from msckf_stereo_c_torch.models import triangulation as tri
+
+    args = lm_problem(4, 8, 20, seed=5, dtype=dtype, device=cuda_device, hard=False)
+    valid = args[1]
+    clean_steps, want_steps = (torch.empty(valid.shape[:2], dtype=torch.int32, device=cuda_device) for _ in "ab")
+    tri.triangulate_tracks_reference(*args, iters=clean_steps)
+    obs, bad = args[0].clone(), torch.zeros_like(clean_steps, dtype=torch.bool)
+    for b in range(4):
+        ks = [k for k in range(8) if int(clean_steps[b, k]) > 1 and not bool(valid[b, k].all())][:3]
+        for j, k in enumerate(ks):
+            obs[b, k, int(torch.nonzero(~valid[b, k])[0]), j % 4] = (float("nan"), float("inf"), -float("inf"))[j]
+            bad[b, k] = True
+    assert int(bad.sum()) >= 8
+    args = (obs,) + args[1:]
+    want = tri.triangulate_tracks_reference(*args, iters=want_steps)
+    got, steps, _ = lm_kernel_calls(args, 4)
+    assert bool((want_steps[bad] == 1).all()) and torch.equal(want_steps[~bad], clean_steps[~bad])
+    assert bool((steps[bad] == 1).all())
+    assert torch.equal(got.valid[bad], want.valid[bad]) and torch.equal(got.base_slot, want.base_slot)
+    tol = LM_POS_TOL[str(dtype).split(".")[-1]]
+    assert float((got.pos_w - want.pos_w)[bad].abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_lm_triangulate_kernel_falls_back_to_depth_one(cuda_device):
+    """A track whose last cam1 view sits at the epipole of its base camera
+    has a two-view depth of 0 to rounding (float64), so its initial guess
+    falls back to depth 1 (|depth| <= 1e-8) in the plain version, and the
+    kernel takes the same branch: steps, valid and base slots equal, and
+    positions within ``LM_F64_WIDEST_M``."""
+    from msckf_stereo_c_torch.models import triangulation as tri
+
+    args = lm_problem(4, 8, 20, seed=6, dtype=torch.float64, device=cuda_device, hard=False)
+    obs, valid, q, p, R01, t01, _ = args
+    _, t, _, _, i0 = tri._stereo_pose_stack(q, p, valid, R01, t01)
+    i_last = 19 - tri._first_true(torch.flip(valid, dims=[-1]))
+    t_last = torch.take_along_dim(t, (2 * i_last + 1)[..., None, None], dim=2)[:, :, 0]  # the base origin in cam1
+    obs = obs.clone()
+    lane, track = torch.meshgrid(torch.arange(4, device=cuda_device), torch.arange(8, device=cuda_device),
+                                 indexing="ij")
+    obs[lane, track, i_last, 2:4] = t_last[..., :2] / t_last[..., 2:]
+    b = obs[lane, track, i_last, 2:4] * t_last[..., 2:] - t_last[..., :2]
+    assert float(b.abs().max()) < 1e-14  # the two-view depth is A.b / |A|^2
+    args = (obs,) + args[1:]
+    want_steps = torch.empty(valid.shape[:2], dtype=torch.int32, device=cuda_device)
+    want = tri.triangulate_tracks_reference(*args, iters=want_steps)
+    got, steps, _ = lm_kernel_calls(args, 4)
+    assert torch.equal(steps, want_steps) and torch.equal(got.valid, want.valid)
+    assert torch.equal(got.base_slot, want.base_slot)
+    gap = (got.pos_w - want.pos_w).norm(dim=-1)[got.valid & want.valid]
+    assert gap.numel() and float(gap.max()) <= LM_F64_WIDEST_M
+
+
+@pytest.mark.cuda
+def test_lm_triangulate_kernel_counts_and_no_sync(cuda_device):
+    """Each call is one launch with no host read (torch's sync debug mode
+    raises on one), and the per-track steps kept under a profiler leave
+    the results bit for bit as a launch that counts nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from msckf_stereo_c_torch.models import triangulation as tri
+
+    args = lm_problem(64, 32, 20, seed=3, device=cuda_device)
+    plain = tri.triangulate_tracks(*args)
+    before = _cuda.launch_counts["lm_triangulate"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            tri.triangulate_tracks(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _cuda.launch_counts["lm_triangulate"] == before + 3
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = tri.triangulate_tracks(*args)
+    steps = tri.lm_work_log[-1]
+    assert steps.device == args[0].device and steps.dtype == torch.int32 and steps.shape == (64, 32)
+    for a, b in zip(plain, got):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+@pytest.mark.cuda
+def test_lm_triangulate_kernel_rejects_bad_input(cuda_device):
+    from msckf_stereo_c_torch.models import triangulation as tri
+
+    args = lm_problem(2, 4, 6, seed=1, device=cuda_device)
+    with pytest.raises(TypeError):
+        tri.triangulate_tracks(args[0].half(), *args[1:])
+    with pytest.raises(TypeError):
+        tri.triangulate_tracks(args[0], args[1].int(), *args[2:])
+    with pytest.raises(TypeError, match="extrinsics"):
+        tri.triangulate_tracks(*args[:4], args[4].double(), *args[5:])
+    with pytest.raises(ValueError, match="shape"):
+        tri.triangulate_tracks(*args[:2], args[2][:, :5], *args[3:])
+    big = lm_problem(1, 2, 65, seed=1, device=cuda_device, hard=False)
+    with pytest.raises(ValueError, match="slots"):
+        tri.triangulate_tracks(*big)
+    empty = tri.triangulate_tracks(args[0][:, :0], args[1][:, :0], *args[2:])
+    assert empty.pos_w.shape == (2, 0, 3) and empty.valid.shape == (2, 0)

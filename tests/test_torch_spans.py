@@ -3,8 +3,9 @@ on the CPU, at B=2 over 3 frames of the stage split's bench scene from the
 state its first frames leave (a 4-camera window, so the camera prune runs
 within the profiled frames): under ``torch.profiler`` every stage span and
 host-read span is recorded, each inside its parent; the LM exit read is
-recorded once an LM iteration; the poses and tracks are bit for bit an
-unprofiled run's; without a profiler ``span`` opens nothing; and
+recorded once an LM iteration, as many times as the most LM steps of any
+track that the profiled call logs in ``triangulation.lm_work_log``; the
+poses and tracks are bit for bit an unprofiled run's; without a profiler ``span`` opens nothing; and
 ``PhaseTimer.phase`` still totals its phases, each phase a span when a
 profiler records.  ``_cuda.launch`` opens each hand kernel's
 ``kernel.<name>`` span around a stand-in entry here, and around the kernel
@@ -16,6 +17,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from _lm_cases import lm_problem
 from msckf_stereo_c_torch.bench import bench_scene
 from msckf_stereo_c_torch.config import FilterConfig, FrontendConfig
 from msckf_stereo_c_torch.models import triangulation
@@ -152,3 +154,40 @@ def test_launch_counts_and_spans_each_hand_kernel(monkeypatch):
     assert calls == [(0, "arg"), (0, "arg"), (700,)]
     assert _cuda.launch_counts["extract_template"] == before + 2
     assert len(_host_spans(prof)["kernel.extract_template"]) == 1
+
+
+def _same(x, y):
+    return torch.equal(x.nan_to_num(), y.nan_to_num()) if x.is_floating_point() else torch.equal(x, y)
+
+
+def test_lm_work_log_one_entry_a_call_only_under_a_profiler():
+    """``triangulate_tracks`` logs each call's int32 (B, K) LM steps while a
+    profiler records, and nothing otherwise; the results stay bit for bit
+    those of an unprofiled call.  A lane outside ``active`` makes no step."""
+    args = lm_problem(5, 16, 8, seed=2)
+    log = triangulation.lm_work_log
+    log.clear()
+    plain = triangulation.triangulate_tracks(*args)
+    assert len(log) == 0
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = triangulation.triangulate_tracks(*args)
+        triangulation.triangulate_tracks(*args[:-1])  # every lane active
+    assert len(log) == 2
+    assert all(x.dtype == torch.int32 and x.shape == (5, 16) for x in log)
+    inactive = ~args[-1]
+    assert bool((log[0][inactive] == 0).all()) and bool((log[0][~inactive] >= 1).all())
+    assert bool((log[1] >= 1).all()) and torch.equal(log[0][~inactive], log[1][~inactive])
+    for x, y in zip(plain, got):
+        assert _same(x, y)
+
+
+@pytest.mark.parametrize("B,seed", [(1, 4), (5, 2), (8, 9)])
+def test_lm_exit_reads_equal_the_most_steps_of_a_call(B, seed):
+    """On the CPU the plain loop runs until no track is active: its exit
+    reads, one an iteration, equal the largest per-track count it logs."""
+    args = lm_problem(B, 16, 8, seed=seed)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        triangulation.triangulate_tracks(*args)
+    steps = triangulation.lm_work_log[-1]
+    assert int(steps.max()) >= 1
+    assert len(_host_spans(prof)["host_read.lm_exit"]) == int(steps.max())
