@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, each of which fails the run (exit code 1) if it fails:
+Phases (``PHASES``, in this order), each of which fails the run (exit code 1)
+if it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every ``msckf_stereo_c_torch/csrc/*.cu`` compiled by ``nvcc`` for
    ``sm_90a`` (into ``build/torch_kernels/``), all sources at once;
-3. kernels: each hand-written kernel against its plain PyTorch version on the
+3. scene: the FRAMES stereo frames of the bench scene (``bench.bench_scene``),
+   rendered on the host;
+4. kernels, and kernels on stress inputs (``phase_k3``): each hand-written
+   kernel against its plain PyTorch version on the
    card, at the shapes the main paths give it, with inputs cut from real
    frames (K2, ``extract_template``, ``resample_template``, the loop-only K1
    and ``lk_corr_align`` from the bench scene; ``lk_corr_align_gain`` and
@@ -27,7 +31,10 @@ Phases, each of which fails the run (exit code 1) if it fails:
    float32 and B=1 in float64 against its plain version, the masked LM
    loop, over windows of 16,384 tracks launched B lanes a call
    (``lm_rows``, by tests/_lm_cases.py:lm_hold);
-4. main path: ``run_vio_sequence`` over the bench scene (752x480 stereo,
+5. kernels on a stack: the four kernels of the main path on a B=4 image stack
+   with a per-window image index, against their plain versions and against
+   one launch per lane (bit-equal);
+6. main path: ``run_vio_sequence`` over the bench scene (752x480 stereo,
    the configuration ``bench.py`` runs, B=1) with the kernel launch counts
    zeroed just before and read just after (7 ``lk_corr_align``, 4
    ``extract_template``, 1 ``resample_template``, 1 ``fast_grid_corners``
@@ -35,9 +42,9 @@ Phases, each of which fails the run (exit code 1) if it fails:
    every later phase also the filter's ``lm_triangulate``, once a
    lost-track update and once a camera prune: T to 2T over T frames,
    ``launches_match``); frames/s, ATE, tracks, host syncs;
-5. mode sweep: each ``klt_norm`` mode over 20 bench frames, with the exact
+7. mode sweep: each ``klt_norm`` mode over 20 bench frames, with the exact
    launch split per frame it must give (``launches_per_frame``);
-6. methods: the last METHOD_FRAMES bench frames from the state the frames
+8. methods: the last METHOD_FRAMES bench frames from the state the frames
    before them leave, under each filter method (``METHOD_RUNS``: 'qr',
    'cholesky' and 'schur' with exact solves and 'schur' with 10
    Newton-Schulz iterations in float32, 'qr' and 'cholesky' in float64):
@@ -47,14 +54,6 @@ Phases, each of which fails the run (exit code 1) if it fails:
    of each other, and
    ``run_vio_sequence(internals_at=INTERNALS_AT)`` with every key of the
    dump and the poses of the run without it;
-7. profile: the last N_TAIL bench frames again, from the state the frames
-   before them leave, under ``torch.profiler``: device busy share and the
-   kernels that take the device time (``<out>/profile.txt``; a profile
-   with no device event is taken once more, then fails the run, here and
-   in the batch sweep); then once more with each stage of a frame timed;
-8. batched kernels: the four kernels of the main path on a B=4 image stack
-   with a per-window image index, against their plain versions and against
-   one launch per lane (bit-equal);
 9. distinct lanes: B=4 sequences of the bench scene, each starting at its
    own trajectory offset (rendered on the card), stepped together over
    DISTINCT_FRAMES frames by ``parallel/vio_multiseq.py:run_vio_batch``
@@ -62,31 +61,24 @@ Phases, each of which fails the run (exit code 1) if it fails:
    7 / 4 / 1 / 1 per batched frame), against four one-lane runs: feature ids
    and validity equal on the first 10 frames, each lane's ATE within
    2e-4 m of its one-lane run;
-10. batch sweep: B in SWEEP_BATCHES with bench.py's semantics (images and
-   IMU shared, states broadcast from the state the first bench frames
-   leave) over the last N_TAIL bench frames: aggregate frames/s, device
-   busy share, device ops and host syncs per frame, peak device memory,
-   launches per frame, and lane ATEs (at B=16 the worst lane within 1e-4 m
-   of lane 0);
-11. stage split: the batch sweep's runs at B in SPLIT_BATCHES under the
-   profiler, read by the spans the program opens around each stage of a
-   frame (``scripts/stage_split.py``: ``LABELS``, the parts of both updates
-   keyed by their parent) and nothing synchronised: host and device ms, device ops and share
-   of the step's device time per stage; every label with device events,
-   each sub-phase's device time within its parent's, the front end's and
-   the filter's totals plus the device time in no stage equal to the
-   step's device total within 1 %, launches exact;
-12. precision: the bf16 precision names (``phase_precision``): the
+10. stage split: the last N_TAIL bench frames from the state the frames
+   before them leave, broadcast to B lanes in SPLIT_BATCHES that share the
+   images and the IMU, under the profiler, read by the spans the program
+   opens around each stage of a frame (``scripts/stage_split.py``:
+   ``LABELS``, the parts of both updates keyed by their parent) and nothing
+   synchronised: host and device ms, device ops and share of the step's
+   device time per stage; every label with device events, each
+   sub-phase's device time within its parent's, the front end's and the
+   filter's totals plus the device time in no stage equal to the step's
+   device total within 1 %, launches exact;
+11. precision: the bf16 precision names (``phase_precision``): the
    filter/front-end specs of PRECISION_SPECS over the first
    PRECISION_FRAMES bench frames at B=1 through ``run_vio_sequence``, each
    with its launches exact, frames/s, host syncs and ATE (under 0.13 m
    for the three-pass specs and the bench's; the one-pass specs recorded
-   as found, a non-finite ATE included); then the stage split at
-   B=PRECISION_BATCH of PRECISION_BATCH_SPECS from the batch sweep's
-   state: device ms a batched frame and the Schur gating's row;
-13. entry point: ``python -m msckf_stereo_c_torch.bench`` at B=16 over 20
-   frames, its one JSON line parsed;
-14. euroc: the bench scene's frames written as a EuRoC ``mav0/`` directory
+   as found, a non-finite ATE included), and every spec's positions apart
+   from the bench spec's;
+12. euroc: the bench scene's frames written as a EuRoC ``mav0/`` directory
    (PNGs whose rows use all five filters) and read back through the
    package's apps: the decoder exact, ``apps/run_euroc.py`` with the three
    in-repo YAMLs (launches per frame from the loaded config's pyramid
@@ -95,7 +87,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    save and resume, ``apps/run_euroc_batch.py`` with B=2 (one lane padded)
    against one-lane runs, and ``entry.entry()``'s step on the card
    (``phase_euroc``);
-15. frontend paths: the tracker's paths off the bench configuration at
+13. frontend paths: the tracker's paths off the bench configuration at
    752x480 through ``run_vio_sequence`` (``phase_frontend_paths``): the
    fast-motion scene at temporal LK depths 2 and 4, and 1 where the
    phase's 100 s allow it, with tests/test_fast_motion.py's bars, the reference's own tracker
@@ -106,15 +98,13 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ``lk_corr_align`` and ``extract_template`` on the new call patterns
    (temporal levels 2 and 3 with two lanes folded in, the standalone anchor
    call) against their plain versions;
-16. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
+14. stress path: ``sim/stress.py:run_stress_gate`` over the 36 s stress scene
    (721 stereo frames rendered on the card with every stress channel on,
    ``klt_norm='gain'``), launch counts zeroed just before and read just
    after (7 ``lk_corr_align_gain``, 4 ``extract_template``, 1
    ``resample_template`` and none of the others per frame), the gate's ATE
-   and track bars,
-   frames/s and render time; then the first STRESS_STAGE_SECONDS again with
-   each stage timed and its host syncs counted;
-17. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
+   and track bars, frames/s and render time;
+15. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
    ``sim/stress.py:run_stress_lanes`` run over STRESS_LANE_SECONDS of the
    stress scene (``klt_norm='none'``; each lane its own landmarks, IMU
    noise, photometric draws and images), launches 7 / 4 / 1 / 1 per batched
@@ -123,7 +113,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ATEs within 2e-4 m, in float32 (the stress script's dtype, whose batched
    products round by batch shape; over STRESS_LANE_F32_SECONDS) the ATE
    gap recorded;
-18. backend: the refinement back end on the card in float64
+16. backend: the refinement back end on the card in float64
    (``phase_backend``): (a) the main path's VioResult through
    ``parallel/refine.py:build_ba_problem`` (keyframes every 5 frames) and
    ``refine_trajectory(iters=8)``, held to the same call on CPU tensors
@@ -137,7 +127,7 @@ Phases, each of which fails the run (exit code 1) if it fails:
    the sharded BA and pose graph over ``gloo`` in DIST_WORLD processes on
    the one card (CUDA tensors), each rank equal to the one-process solve
    within DIST_TOL;
-19. multiproc: the multi-process tier on the card (``phase_multiproc``):
+17. multiproc: the multi-process tier on the card (``phase_multiproc``):
    (a) ``entry.dryrun_multichip(2)``, the bench configuration at 752x480,
    2 lanes x 22 frames in one process and then as 2 ranks over ``gloo``
    on the one card; (b) the ``vio`` workers (half resolution, 4 lanes over
@@ -148,42 +138,35 @@ Phases, each of which fails the run (exit code 1) if it fails:
    the first 10 frames, positions within 2e-4 m), the all-reduced
    ``total_tracks`` equal to the sum of the ranks' own totals, the BA
    ranks within 1e-9 of the one-process solve;
-20. the card's name and power limit, the ``{"kernels": [...]}`` line, then
+18. the card's name and power limit, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": ...}`` as the last line.
 
-Details go to ``<out>/chip_smoke.json``.  The script imports nothing of JAX
+Details go to ``<out>/chip_smoke.json``, one record per phase under its
+label, with each phase's seconds.  The script imports nothing of JAX
 or of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
 import sys
 import time
-import warnings
+
+from bench_vio.roofline.lk import (
+    F32_OPS_PER_S, K1_OPS_PER_STEP, K3_OPS_PER_STEP, SECTOR_BYTES, bound_ms, footprint_sectors, lk_trace,
+    window_sectors)
+from bench_vio.trace.syncs import count_syncs, package_sites
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and float32
-# operations/s outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# Floating-point operations of one K1 Gauss-Newton step of one feature:
-# 4 bilinear weights (8), two 4-tap sums (16), residuals (2), 2x2 solve (6),
-# update and clamps (6), convergence test (4).
-K1_OPS_PER_STEP = 42
-# One K3 step: 4 bilinear weights (8), three 4-tap sums (24), residuals (3),
-# the 2x3 product (10), update and clamps (6), convergence test (4).
-K3_OPS_PER_STEP = 55
 K1_TOL = 0.02  # 2 * eps: a lane may freeze one (sub-eps) step apart
-SECTOR_BYTES = 32  # the least the card reads from memory at once
 FRAMES = 60  # main-path frames, 752x480 stereo (bench.py's scene)
-N_TAIL = 8  # last frames of the scene run again by the profile phase and the batch sweep
+N_TAIL = 8  # last bench frames of the stage split, from the state the frames before them leave
 SWEEP_FRAMES = 20  # bench frames per photometric mode in the mode sweep
 STRESS_SECONDS = 36.0  # the stress gate's short run (721 stereo frames)
-STRESS_STAGE_SECONDS = 3.0  # the stage-timed stress run (61 stereo frames; 12 s before the [multiproc] phase)
 STACK_LANES = 4  # images in the stack of the batched-kernel checks
 DISTINCT_FRAMES = 30  # frames of the distinct-lane run
 # The filter methods over the last METHOD_FRAMES bench frames, from the state
@@ -206,16 +189,10 @@ INTERNAL_KEYS = (
 STRESS_LANE_SEEDS = (0, 1)  # robustness seeds of the stress-lane run
 STRESS_LANE_SECONDS = 4.0  # its length in float64 (81 stereo frames; 6 s before the [multiproc] phase)
 STRESS_LANE_F32_SECONDS = 3.0  # its length in float32 (61 stereo frames)
-# Lanes of the batch sweep: bench.py's B=16 and powers of four around it,
-# up to where the card, not the host, sets the batched frame's time (B=4
-# and B=64, host-bound like B=1 and 16, left out to keep the script in its
-# time).
-SWEEP_BATCHES = (1, 16, 256, 1024)
 SPLIT_BATCHES = (1, 16, 1024)  # B of the stage split phase
 # The [precision] phase: filter/front-end specs over the first
 # PRECISION_FRAMES bench frames, each with whether its ATE is held under
-# 0.13 m (the one-pass specs are recorded as found), and the specs of its
-# stage split at B = PRECISION_BATCH.
+# 0.13 m (the one-pass specs are recorded as found).
 PRECISION_FRAMES = 30
 PRECISION_SPECS = (
     ("tensorfloat32/tensorfloat32", True),  # the bench configuration
@@ -224,8 +201,6 @@ PRECISION_SPECS = (
     ("float32/bfloat16", False),
     ("bfloat16/tensorfloat32", False),
 )
-PRECISION_BATCH = 256
-PRECISION_BATCH_SPECS = ("tensorfloat32/tensorfloat32", "bfloat16_3x/tensorfloat32")
 # The back end (phase_backend).  Card against CPU for the main path's BA:
 # costs within BA_CARD_TOL relative, positions and landmarks within
 # BA_CARD_TOL m; the distributed ranks against the one-process solve on the
@@ -391,102 +366,6 @@ def _fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def lk_trace(sc, surfaces, iters: int, eps: float, hi: float):
-    """The algorithm of K1 (two surfaces, sc (N, 8)) or K3 (three surfaces,
-    sc (N, 12)) in numpy float64: four bilinear taps per surface and step,
-    each lane stopping on its own.
-
-    Returns the final points (N, 2), the Gauss-Newton steps of each lane,
-    the distinct 32-byte sectors of one (N, K, K) float32 surface that
-    those steps read (the same cells of every surface), and the distinct
-    cells they read as flat indices (lane * K + y) * K + x.  What the kernel
-    must read and compute on given inputs depends on where and how long
-    each lane walks: a lane that starts frozen reads no surface at all."""
-    import numpy as np
-
-    sc = sc.astype(np.float64)
-    surf = [c.astype(np.float64) for c in surfaces]
-    n, K, _ = surf[0].shape
-    if len(surf) == 2:
-        gxx, gxy, gyy = sc[:, 0], sc[:, 1], sc[:, 2]
-        det = gxx * gyy - gxy * gxy
-        inv_det = 1.0 / np.where(np.abs(det) > 1e-30, det, 1e-30)
-        B = np.stack([np.stack([gyy, -gxy], -1), np.stack([-gxy, gxx], -1)], -2) * inv_det[:, None, None]
-        t, f0 = sc[:, 3:5], 5
-    else:
-        B = sc[:, 0:6].reshape(n, 2, 3)
-        t, f0 = sc[:, 6:9], 9
-    fx, fy = sc[:, f0].copy(), sc[:, f0 + 1].copy()
-    conv = sc[:, f0 + 2] > 0.5
-    steps = np.zeros(n, np.int64)
-    lanes = np.arange(n)
-    touched = [np.zeros(0, np.int64)]
-    for _ in range(iters):
-        act = ~conv
-        if not act.any():
-            break
-        steps += act
-        fxs, fys = np.clip(fx, 0, hi), np.clip(fy, 0, hi)
-        x0, y0 = np.floor(fxs).astype(int), np.floor(fys).astype(int)
-        ax, ay = fxs - x0, fys - y0
-        cell = (lanes * K + y0) * K + x0
-        touched += [cell[act] + d for d in (0, 1, K, K + 1)]
-
-        def tap(c):
-            return ((1 - ay) * (1 - ax) * c[lanes, y0, x0] + (1 - ay) * ax * c[lanes, y0, x0 + 1]
-                    + ay * (1 - ax) * c[lanes, y0 + 1, x0] + ay * ax * c[lanes, y0 + 1, x0 + 1])
-
-        b = t - np.stack([tap(c) for c in surf], -1)
-        d = np.einsum("nij,nj->ni", B, b)
-        fx = np.where(act, np.clip(fx + d[:, 0], 0, hi), fx)
-        fy = np.where(act, np.clip(fy + d[:, 1], 0, hi), fy)
-        conv = conv | (act & (np.hypot(d[:, 0], d[:, 1]) < eps))
-    cells = np.unique(np.concatenate(touched))
-    sectors = np.unique(cells * 4 // SECTOR_BYTES).size
-    return np.stack([fx, fy], -1), steps, sectors, cells
-
-
-def footprint_sectors(origins, cells, S: int, P: int, H: int, W: int) -> int:
-    """Distinct 32-byte sectors of a float32 (H, W) image that the surface
-    cells ``cells`` (flat indices (lane * K + y) * K + x, as ``lk_trace``
-    returns them, K = S - P + 1) of the (S, S) windows at ``origins``
-    (N, 2) [x, y] read: each cell's correlation reads the (P, P) pixels at
-    its window's clamped origin plus (x, y)."""
-    import numpy as np
-
-    K = S - P + 1
-    o = np.asarray(origins, np.int64).reshape(-1, 2)
-    ox = np.clip(o[:, 0], 0, W - S)
-    oy = np.clip(o[:, 1], 0, H - S)
-    c = np.asarray(cells, np.int64)
-    lane, y, x = c // (K * K), c // K % K, c % K
-    return window_sectors(np.stack([ox[lane] + x, oy[lane] + y], 1), P, H, W)
-
-
-def window_sectors(origins, S: int, H: int, W: int, img_index=None) -> int:
-    """Distinct 32-byte sectors of a float32 (B, H, W) image stack (32-byte
-    aligned) under the (S, S) windows at integer ``origins`` (N, 2) [x, y],
-    clamped into the image as the kernels clamp them, in the images
-    ``img_index`` (N,) (image 0 without)."""
-    import numpy as np
-
-    o = np.asarray(origins, np.int64).reshape(-1, 2)
-    ox = np.clip(o[:, 0], 0, W - S)
-    oy = np.clip(o[:, 1], 0, H - S)
-    b = np.zeros_like(ox) if img_index is None else np.asarray(img_index, np.int64)
-    first = ((b[:, None] * H + oy[:, None] + np.arange(S)) * W + ox[:, None]) * 4  # (N, S) row starts
-    lo = first // SECTOR_BYTES
-    hi = (first + 4 * S - 1) // SECTOR_BYTES
-    sec = lo[..., None] + np.arange(int((hi - lo).max(initial=0)) + 1)
-    return int(np.unique(sec[sec <= hi[..., None]]).size)
-
-
 def phase_device():
     import torch
 
@@ -502,7 +381,8 @@ def phase_device():
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"capability {torch.cuda.get_device_capability(0)} count {torch.cuda.device_count()}")
     check(torch.cuda.get_device_capability(0) == (9, 0), "the kernels are built for sm_90a (Hopper)")
-    return card, name
+    device = dict(card=card, kind=name, count=torch.cuda.device_count())
+    return device, device
 
 
 def phase_build():
@@ -519,6 +399,17 @@ def phase_build():
     for name in KERNEL_SOURCES:
         _cuda.kernel_function(name)
     return {"seconds": secs, "logs": logs}
+
+
+def phase_scene():
+    """The FRAMES stereo frames of the bench scene (``bench.bench_scene``),
+    rendered on the host; hands on the scene and its fields."""
+    from msckf_stereo_c_torch.bench import bench_scene
+
+    scene = bench_scene(FRAMES)
+    print(f"[scene] {FRAMES} stereo frames {scene.img0.shape[2]}x{scene.img0.shape[1]} rendered")
+    return dict(frames=FRAMES, height=scene.img0.shape[1], width=scene.img0.shape[2]), \
+        dict(scene=scene, **scene._asdict())
 
 
 def phase_kernels(img0, img1, fcfg):
@@ -1240,32 +1131,7 @@ def phase_main_path(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
     want = launches_per_frame(fcfg)
     check(launches_match(counts, want, T),
           f"main path launches {counts}, expected per frame {want}")
-    return out, res
-
-
-def count_syncs(fn):
-    """{call site: count} of every synchronising call that ``fn`` makes, as
-    torch's sync debug mode reports them."""
-    import torch
-
-    sites = {}
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    for w in caught:
-        if "synchroniz" in str(w.message):
-            site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
-            sites[site] = sites.get(site, 0) + 1
-    return sites
-
-
-def package_sites(sites):
-    """The call sites of ``count_syncs`` inside the package."""
-    return {k: v for k, v in sites.items() if k.startswith("msckf_stereo_c_torch/")}
+    return out, dict(main_res=res)
 
 
 def phase_k3(fcfg):
@@ -1407,15 +1273,13 @@ def phase_stress(card):
     """The stress path: ``run_stress_gate`` over the 36 s stress scene with
     klt_norm='gain', rendered on the card in chunks (752x480 stereo, 900
     room landmarks, every stress channel on), with the launch counts zeroed
-    just before and read just after; then the same run once more with each
-    stage timed and its host syncs counted."""
+    just before and read just after."""
     import numpy as np
     import torch
 
     from msckf_stereo_c_torch.config import FilterConfig, FrontendConfig
     from msckf_stereo_c_torch.ops import _cuda
     from msckf_stereo_c_torch.sim import render_torch, stress
-    from msckf_stereo_c_torch.sim.trajectory import make_stress_trajectory
 
     kw = dict(fcfg=FrontendConfig(klt_norm="gain"),
               mcfg=FilterConfig(ns_iters=10, matmul_precision="tensorfloat32"), method="schur", seed=0)
@@ -1462,25 +1326,10 @@ def phase_stress(card):
     check(gate.ate_rmse < 0.13, f"stress ATE {gate.ate_rmse} m is above the 0.13 m bar")
     check(gate.min_tracks_after_ransac > 3, f"stress min tracks {gate.min_tracks_after_ransac} (bar > 3)")
     check(tracks.mean() > 30, f"stress mean tracks {tracks.mean()} (bar > 30)")
-
-    # The first STRESS_STAGE_SECONDS once more, each stage timed and every
-    # synchronising call counted; only the package's call sites count (the
-    # stage timer's own synchronise calls are not the program's).
-    n_stage = len(np.arange(0, make_stress_trajectory(duration=STRESS_STAGE_SECONDS).t.shape[0], 10))
-    stages = []
-    sites = count_syncs(lambda: stages.append(phase_stages(
-        lambda: stress.run_stress_gate(duration=STRESS_STAGE_SECONDS, **kw), n_stage, tag="stress stages")))
-    sites = package_sites(sites)
-    out.update(stages=stages[0], stage_frames=n_stage, syncs_per_frame=sum(sites.values()) / n_stage,
-               sync_sites={k: v / n_stage for k, v in sorted(sites.items(), key=lambda kv: -kv[1])})
-    print(f"[stress] host syncs per frame: {out['syncs_per_frame']:.2f} over the first {n_stage} frames "
-          f"(torch sync debug mode, the stage-timed run), by call site:")
-    for site, per_frame in list(out["sync_sites"].items())[:4]:
-        print(f"[stress]   {per_frame:.2f}/frame at {site}")
-    return out, gate
+    return out, dict(stress_run=gate)
 
 
-def phase_methods(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
+def phase_methods(scene, fcfg, mcfg, card):
     """Each filter method of METHOD_RUNS over the last METHOD_FRAMES bench
     frames (B=1), from the state the frames before them leave (the main
     configuration's): the filter in float32 under 'qr', 'cholesky' and
@@ -1497,13 +1346,14 @@ def phase_methods(traj, imu, frame_idx, img0, img1, fcfg, mcfg, card):
     from msckf_stereo_c_torch.config import EUROC_CALIB, FilterConfig
     from msckf_stereo_c_torch.models.vio import run_vio_sequence
     from msckf_stereo_c_torch.ops import _cuda
+    from msckf_stereo_c_torch.scripts.stage_split import head_state
     from msckf_stereo_c_torch.utils.lanes import map_tree
 
-    frame_t = traj.t[frame_idx]
+    imu, img0, img1, frame_t = scene.imu, scene.img0, scene.img1, scene.frame_t
     k0 = frame_t.shape[0] - METHOD_FRAMES
     T = METHOD_FRAMES
-    gt = traj.p[frame_idx[k0:]]
-    _, head = _resume_split(traj, imu, frame_idx, img0, img1, fcfg, mcfg, METHOD_FRAMES)
+    gt = scene.traj.p[scene.frame_idx[k0:]]
+    head = head_state(scene, k0, fcfg, mcfg, "schur", "cuda")
     want = launches_per_frame(fcfg)
 
     def cast(state, dtype):
@@ -1646,102 +1496,6 @@ def phase_stress_lanes(card):
               f"{ {k: v // T for k, v in counts.items()} } on {card}")
         out[dname] = dict(seeds=seeds, frames=T, seconds=secs, fps=len(seeds) * T / secs,
                           seconds_one_lane_runs=alone_s, peak_memory_gb=peak, launches=counts, per_lane=per_lane)
-    return out
-
-
-def _resume_split(traj, imu, frame_idx, img0, img1, fcfg, mcfg, n_tail):
-    """Runs all but the last ``n_tail`` frames and returns a function that
-    runs those last frames from the state they leave (the tracker and the
-    filter then in steady state, the camera window full), and that state;
-    the head runs once, the tail as often as it is called."""
-    import torch
-
-    from msckf_stereo_c_torch.config import EUROC_CALIB
-    from msckf_stereo_c_torch.models.vio import run_vio_sequence
-
-    frame_t = traj.t[frame_idx]
-    k0 = frame_t.shape[0] - n_tail
-    kw = dict(image_dtype=torch.float32, filter_dtype=torch.float32, method="schur", device="cuda")
-    head = run_vio_sequence(fcfg, mcfg, EUROC_CALIB, frame_t[:k0], img0[:k0], img1[:k0],
-                            imu.t, imu.gyro, imu.acc, **kw)
-
-    def tail():
-        run_vio_sequence(fcfg, mcfg, EUROC_CALIB, frame_t[k0:], img0[k0:], img1[k0:], imu.t, imu.gyro,
-                         imu.acc, state=head.final_state, prev_frame_t=float(frame_t[k0 - 1]), **kw)
-        torch.cuda.synchronize()
-
-    return tail, head.final_state
-
-
-def phase_profile(tail, n_tail, out_dir):
-    """Device busy time per frame and the kernels that take it, as
-    torch.profiler (CUPTI, device activity only) records them over one run
-    of the ``n_tail`` last frames; the table goes to
-    ``<out_dir>/profile.txt``.  A profile with no device event is profiled
-    once more, and fails the phase if it is empty again."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def take():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tail()
-            wall = time.perf_counter() - t0
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        return (prof, wall, events), len(events)
-
-    (prof, wall, events), attempt = profiled_twice(take, "[profile]")
-    dev_us = sum(e.self_device_time_total for e in events)
-    calls = sum(e.count for e in events)
-    with open(os.path.join(out_dir, "profile.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=50, max_name_column_width=120))
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    out = dict(frames=n_tail, wall_ms_per_frame=wall * 1e3 / n_tail, device_ms_per_frame=dev_us / 1e3 / n_tail,
-               device_ops_per_frame=calls / n_tail, attempts=attempt,
-               top=[dict(name=e.key, calls_per_frame=e.count / n_tail,
-                         device_ms_per_frame=e.self_device_time_total / 1e3 / n_tail) for e in top])
-    print(f"[profile] {n_tail} frames, device activity traced: wall {out['wall_ms_per_frame']:.2f} ms/frame, "
-          f"device busy {out['device_ms_per_frame']:.3f} ms/frame ({100 * dev_us / 1e6 / wall:.1f}% of wall), "
-          f"{calls / n_tail:.0f} kernels and copies per frame")
-    for e in out["top"]:
-        print(f"[profile]   {e['device_ms_per_frame']:.4f} ms/frame, {e['calls_per_frame']:.0f} calls/frame: {e['name'][:80]}")
-    return out
-
-
-def phase_stages(tail, n_tail, tag="stages"):
-    """Wall time of each stage of a frame (``stage_split.STAGES``) over one
-    run of the ``n_tail`` last frames: each stage function is wrapped for
-    this phase by one that synchronises the card before and after it
-    (which adds those syncs to the run)."""
-    import torch
-
-    from msckf_stereo_c_torch.scripts.stage_split import STAGES, wrapped
-
-    spent = {stage[-1]: 0.0 for stage in STAGES}
-
-    def timed(fn, label):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spent[label] += time.perf_counter() - t0
-            return out
-        return wrapper
-
-    with wrapped(STAGES, timed):
-        t0 = time.perf_counter()
-        tail()
-        wall = time.perf_counter() - t0
-    out = {label: secs * 1e3 / n_tail for label, secs in spent.items()}
-    out["frame"] = wall * 1e3 / n_tail
-    print(f"[{tag}] {n_tail} frames, each stage synchronised: {out['frame']:.2f} ms/frame")
-    for label, ms in out.items():
-        if label != "frame":
-            print(f"[{tag}]   {ms:8.3f} ms/frame  {label}")
     return out
 
 
@@ -1922,102 +1676,11 @@ def phase_distinct_lanes(scene, fcfg, mcfg, card):
     return out
 
 
-def phase_batch_sweep(scene, head_state, fcfg, mcfg, card, out_dir):
-    """bench.py's semantics at each B of SWEEP_BATCHES: the state the first
-    FRAMES - N_TAIL bench frames leave, broadcast to B identical lanes;
-    images and IMU of the last N_TAIL frames shared by every lane.  After a
-    two-frame warm-up at that B, one timed run (aggregate frames/s, peak
-    device memory, launches per batched frame, lane ATEs), then one run
-    under torch.profiler with every host sync counted (device busy share,
-    device ops and host syncs per batched frame); a profile with no device
-    event is taken once more, and fails the phase if it is empty again."""
-    import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from msckf_stereo_c_torch.ops import _cuda
-    from msckf_stereo_c_torch.scripts.stage_split import tail_run
-
-    dev = torch.device("cuda")
-    k0, T = FRAMES - N_TAIL, N_TAIL
-    t_tail, gt = scene.frame_t[k0:], scene.traj.p[scene.frame_idx[k0:]]
-    want = launches_per_frame(fcfg)
-    rows = []
-    for B in SWEEP_BATCHES:
-        run = tail_run(scene, head_state, k0, B, fcfg, mcfg, "schur", dev)
-        run(2)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _cuda.reset_launch_counts()
-        t0 = time.perf_counter()
-        _, poses, _, _ = run()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts = dict(_cuda.launch_counts)
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        check(launches_match(counts, want, T),
-              f"batch sweep B={B}: launches {counts}, expected per batched frame {want}")
-        est = poses.p.cpu().numpy()
-        check(bool(np.isfinite(est).all()), f"batch sweep B={B}: non-finite poses")
-        ates = np.array([_ate(t_tail, e, gt) for e in est])
-
-        def take():
-            prof_wall = []
-
-            def profiled():
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    t1 = time.perf_counter()
-                    run()
-                    torch.cuda.synchronize()
-                    prof_wall.append(time.perf_counter() - t1)
-                prof_wall.append(prof)
-
-            sites = package_sites(count_syncs(profiled))
-            wall, prof = prof_wall
-            events = [e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-            return (sites, wall, prof, events), len(events)
-
-        (sites, wall, prof, events), attempt = profiled_twice(take, f"[sweep] B={B}:")
-        dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / T
-        ops = sum(e.count for e in events) / T
-        if B == SWEEP_BATCHES[-1]:
-            with open(os.path.join(out_dir, f"profile_b{B}.txt"), "w") as f:
-                f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40,
-                                                  max_name_column_width=120))
-        row = dict(B=B, frames=T, seconds=secs, fps=B * T / secs, ms_per_batched_frame=secs * 1e3 / T,
-                   profiled_wall_ms_per_frame=wall * 1e3 / T, device_ms_per_frame=dev_ms,
-                   busy_share=dev_ms * T / 1e3 / wall, profile_attempts=attempt, device_ops_per_frame=ops,
-                   syncs_per_frame=sum(sites.values()) / T, peak_memory_gb=peak,
-                   launches_per_frame={k: v / T for k, v in counts.items()},
-                   ate_lane0_m=float(ates[0]), ate_worst_m=float(ates.max()),
-                   top=[dict(name=e.key, calls_per_frame=e.count / T,
-                             device_ms_per_frame=e.self_device_time_total / 1e3 / T)
-                        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]])
-        rows.append(row)
-        print(f"[sweep] B={B:3d}: {row['fps']:8.2f} frames/s aggregate ({row['ms_per_batched_frame']:.2f} ms per "
-              f"batched frame); profiled: device {dev_ms:.3f} ms/frame, busy {100 * row['busy_share']:.1f}%, "
-              f"{ops:.0f} device ops/frame; "
-              f"{row['syncs_per_frame']:.2f} host syncs/frame; peak {peak:.3f} GB; ATE lane 0 {ates[0]:.6f} m, "
-              f"worst {ates.max():.6f} m; on {card}")
-    by_b = {r["B"]: r for r in rows}
-    if 16 in by_b and 1 in by_b:
-        r1, r16 = by_b[1], by_b[16]
-        check(abs(r16["ate_worst_m"] - r16["ate_lane0_m"]) <= 1e-4,
-              f"B=16: worst lane ATE {r16['ate_worst_m']} m vs lane 0 {r16['ate_lane0_m']} m (> 1e-4 m apart)")
-        check(r16["device_ops_per_frame"] <= 1.25 * r1["device_ops_per_frame"],
-              f"B=16: {r16['device_ops_per_frame']} device ops per frame (> 1.25 x {r1['device_ops_per_frame']})")
-        check(r16["syncs_per_frame"] <= 1.2 * r1["syncs_per_frame"],
-              f"B=16: {r16['syncs_per_frame']} host syncs per frame (> 1.2 x {r1['syncs_per_frame']})")
-    return rows
-
-
-def phase_stage_split(scene, head_state, fcfg, mcfg, card):
+def phase_stage_split(scene, fcfg, mcfg, card):
     """The stage split (``scripts/stage_split.py``) at each B of
-    SPLIT_BATCHES over the batch sweep's N_TAIL frames from the same
-    state: every label's spans hold device events, every hand kernel's
+    SPLIT_BATCHES over the last N_TAIL bench frames, from the state the
+    frames before them leave broadcast to B lanes that share the images and
+    the IMU: every label's spans hold device events, every hand kernel's
     device event is placed in its stage, no sub-phase takes more device
     time than its parent, the front end's and the filter's totals plus the
     device time in no stage make the step's device total within 1 %, and
@@ -2026,13 +1689,15 @@ def phase_stage_split(scene, head_state, fcfg, mcfg, card):
     import numpy as np
     import torch
 
-    from msckf_stereo_c_torch.scripts.stage_split import FILTER_TOTAL, FRONTEND_TOTAL, parent_of, split_at, tail_run
+    from msckf_stereo_c_torch.scripts.stage_split import (
+        FILTER_TOTAL, FRONTEND_TOTAL, head_state, parent_of, split_at, tail_run)
 
     k0, T = FRAMES - N_TAIL, N_TAIL
+    state = head_state(scene, k0, fcfg, mcfg, "schur", "cuda")
     want = launches_per_frame(fcfg)
     out = {}
     for B in SPLIT_BATCHES:
-        run = tail_run(scene, head_state, k0, B, fcfg, mcfg, "schur", torch.device("cuda"))
+        run = tail_run(scene, state, k0, B, fcfg, mcfg, "schur", torch.device("cuda"))
         def take():
             result, table = split_at(run, tag="stage split")
             return (result, table), table["device_ops"]
@@ -2063,7 +1728,7 @@ def phase_stage_split(scene, head_state, fcfg, mcfg, card):
     return out
 
 
-def phase_precision(scene, head_state, fcfg, mcfg, card, out_dir):
+def phase_precision(scene, fcfg, mcfg, card):
     """The bf16 precision names on the bench scene: each filter/front-end
     spec of PRECISION_SPECS over the first PRECISION_FRAMES frames (B=1)
     through ``run_vio_sequence``, launch counts zeroed just before and read
@@ -2071,24 +1736,16 @@ def phase_precision(scene, head_state, fcfg, mcfg, card, out_dir):
     sync counted, ATE (under 0.13 m for the specs marked so; the others,
     JAX's notes expect to diverge, are recorded as found, a non-finite ATE
     included), and the positions of every spec but the bench's apart from
-    the bench's (the passes reached the run); then at B=PRECISION_BATCH,
-    from the batch sweep's state, the stage split
-    (``scripts/stage_split.py``) of PRECISION_BATCH_SPECS: device ms a
-    batched frame and the Schur gating's row, no bar, and one more
-    profiled run of each whose kernel table goes to
-    ``<out_dir>/profile_precision_b<B>_<spec>.txt``."""
+    the bench's (the passes reached the run)."""
     import dataclasses
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from msckf_stereo_c_torch.config import EUROC_CALIB
     from msckf_stereo_c_torch.io.tum import evaluate_ate
     from msckf_stereo_c_torch.models.vio import run_vio_sequence
     from msckf_stereo_c_torch.ops import _cuda
-    from msckf_stereo_c_torch.scripts.stage_split import split_at, tail_run
 
     def configs(spec):
         filt, front = spec.split("/")
@@ -2141,74 +1798,7 @@ def phase_precision(scene, head_state, fcfg, mcfg, card, out_dir):
     for spec, _ in PRECISION_SPECS[1:]:
         check(not np.array_equal(positions[spec], positions[bench]),
               f"[precision] {spec}: the positions are the bench spec's: the passes did not reach the run")
-
-    k0 = FRAMES - N_TAIL
-    batch = {}
-    want = launches_per_frame(fcfg)
-    for spec in PRECISION_BATCH_SPECS:
-        f, m = configs(spec)
-        run = tail_run(scene, head_state, k0, PRECISION_BATCH, f, m, "schur", torch.device("cuda"))
-
-        def take():
-            result, table = split_at(run, tag=f"precision B={PRECISION_BATCH} {spec}")
-            return (result, table), table["device_ops"]
-
-        ((_, poses, _, _), table), attempt = profiled_twice(take, f"[precision] B={PRECISION_BATCH} {spec}:")
-        check(launches_match(table["launches"], want, N_TAIL),
-              f"[precision] B={PRECISION_BATCH} {spec}: launches {table['launches']}")
-        est = poses.p.cpu().numpy()
-        lane0 = _ate(scene.frame_t[k0:], est[0], scene.traj.p[scene.frame_idx[k0:]]) \
-            if np.isfinite(est).all() else float("inf")
-        gating = table["stages"]["filter.lost/filter.schur_gating"]
-
-        def take_kernels():
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                run()
-                torch.cuda.synchronize()
-            events = [e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-            return (prof, events), len(events)
-
-        (prof, events), _ = profiled_twice(take_kernels, f"[precision] B={PRECISION_BATCH} {spec} kernels:")
-        with open(os.path.join(out_dir, f"profile_precision_b{PRECISION_BATCH}_{spec.replace('/', '_')}.txt"),
-                  "w") as f:
-            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40,
-                                              max_name_column_width=120))
-        kernels = [dict(name=e.key, calls_per_frame=e.count / N_TAIL,
-                        device_ms_per_frame=e.self_device_time_total / 1e3 / N_TAIL)
-                   for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]]
-        batch[spec] = dict(B=PRECISION_BATCH, frames=N_TAIL, device_ms=table["device_ms"],
-                           device_ops=table["device_ops"], wall_ms=table["wall_ms"],
-                           schur_gating_device_ms=gating["device_ms"], schur_gating_share=gating["share"],
-                           ate_lane0_m=lane0, profile_attempts=attempt, top_kernels=kernels)
-        print(f"[precision] B={PRECISION_BATCH} filter/front end {spec}: step device {table['device_ms']:.3f} ms a "
-              f"batched frame, Schur gating {gating['device_ms']:.3f} ms ({100 * gating['share']:.1f} %), "
-              f"{table['device_ops']:.0f} device ops, lane 0 ATE over the tail {lane0:.6f} m; on {card}")
-        for k in kernels:
-            print(f"[precision]   {k['device_ms_per_frame']:8.3f} ms {k['calls_per_frame']:7.1f} calls a frame  "
-                  f"{k['name'][:110]}")
-    return dict(rows=rows, batch=batch)
-
-
-def phase_entry_point(card):
-    """``python -m msckf_stereo_c_torch.bench`` at B=16 over 20 frames in
-    a process of its own: one JSON line with bench.py's four keys."""
-    env = dict(os.environ, BENCH_BATCH="16", BENCH_FRAMES="20", PYTHONPATH=ROOT)
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "msckf_stereo_c_torch.bench"], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - t0
-    check(r.returncode == 0, f"msckf_stereo_c_torch.bench exited {r.returncode}: {r.stderr[-2000:]}")
-    lines = r.stdout.strip().splitlines()
-    check(len(lines) == 1, f"msckf_stereo_c_torch.bench printed {len(lines)} lines on stdout")
-    result = json.loads(lines[0])
-    check(set(result) == {"metric", "value", "unit", "vs_baseline"} and result["value"] > 0,
-          f"msckf_stereo_c_torch.bench printed {result}")
-    side = [ln for ln in r.stderr.splitlines() if ln.startswith("# device=")]
-    print(f"[bench] {lines[0]}")
-    print(f"[bench] {side[-1] if side else 'no side-channel line'} ({secs:.1f} s with start-up and rendering)")
-    return dict(result=result, stderr=side[-1] if side else None, seconds=secs)
+    return rows
 
 
 EUROC_CHUNK = 32  # the app's --chunk in the euroc phase
@@ -3069,10 +2659,36 @@ def phase_multiproc(card):
     return out
 
 
+# The phases in the order they run.  A phase's parameters name what it takes:
+# ``fcfg``, ``mcfg`` and ``out_dir`` of the run, or what an earlier phase
+# hands on.  A phase returns its record for chip_smoke.json, or (record,
+# {name: value}) to hand values on to the phases after it.
+PHASES = (
+    ("device", phase_device),
+    ("build", phase_build),
+    ("scene", phase_scene),
+    ("kernels", phase_kernels),
+    ("kernels, stress inputs", phase_k3),
+    ("kernels on a stack", phase_stack_kernels),
+    ("main path", phase_main_path),
+    ("mode sweep", phase_mode_sweep),
+    ("methods", phase_methods),
+    ("distinct lanes", phase_distinct_lanes),
+    ("stage split", phase_stage_split),
+    ("precision", phase_precision),
+    ("euroc", phase_euroc),
+    ("frontend paths", phase_frontend_paths),
+    ("stress path", phase_stress),
+    ("stress lanes", phase_stress_lanes),
+    ("backend", phase_backend),
+    ("multiproc", phase_multiproc),
+)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke"),
-                    help="directory for chip_smoke.json and profile.txt (default build/chip_smoke)")
+                    help="directory for chip_smoke.json (default build/chip_smoke)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "msckf_stereo_c_torch")):
@@ -3080,59 +2696,28 @@ def main(argv=None) -> int:
               "(msckf_stereo_c_torch/ is missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    import torch
+    os.makedirs(args.out, exist_ok=True)
 
-    if not torch.cuda.is_available():
-        print("torch.cuda.is_available() is false: no result", file=sys.stderr)
-        return 1
-
-    from msckf_stereo_c_torch.bench import bench_scene
     from msckf_stereo_c_torch.config import FilterConfig, FrontendConfig
-
-    t_start = time.time()
-    phase_seconds = {}
-
-    def timed(label, fn, *fn_args):
-        """``fn(*fn_args)``, its wall time kept under ``label``."""
-        t0 = time.time()
-        out = fn(*fn_args)
-        phase_seconds[label] = time.time() - t0
-        print(f"[phase] {label}: {phase_seconds[label]:.1f} s")
-        return out
-
-    card, name = phase_device()
-    build = timed("build", phase_build)
 
     # The bench configuration (bench.py): FrontendConfig defaults with one
     # temporal level; Schur filter in f32 with 10 Newton-Schulz iterations
     # and the 'tensorfloat32' name, which the port maps to full f32.
-    fcfg = FrontendConfig(temporal_levels=1)
-    mcfg = FilterConfig(ns_iters=10, matmul_precision="tensorfloat32")
-    scene = timed("scene", bench_scene, FRAMES)
-    traj, imu, frame_idx, img0, img1 = scene.traj, scene.imu, scene.frame_idx, scene.img0, scene.img1
-    print(f"[scene] {FRAMES} stereo frames {img0.shape[2]}x{img0.shape[1]} rendered")
+    given = dict(fcfg=FrontendConfig(temporal_levels=1),
+                 mcfg=FilterConfig(ns_iters=10, matmul_precision="tensorfloat32"), out_dir=args.out)
+    records, phase_seconds = {}, {}
+    t_start = time.time()
+    for label, phase in PHASES:
+        t0 = time.time()
+        record = phase(*(given[name] for name in inspect.signature(phase).parameters))
+        if isinstance(record, tuple):
+            record, handed = record
+            given.update(handed)
+        records[label] = record
+        phase_seconds[label] = time.time() - t0
+        print(f"[phase] {label}: {phase_seconds[label]:.1f} s")
 
-    rows = timed("kernels", phase_kernels, img0, img1, fcfg) + timed("kernels, stress inputs", phase_k3, fcfg)
-    stack_rows = timed("kernels on a stack", phase_stack_kernels, img0, fcfg)
-    main_out, main_res = timed("main path", phase_main_path, traj, imu, frame_idx, img0, img1, fcfg, mcfg, card)
-    sweep_out = timed("mode sweep", phase_mode_sweep, traj, imu, frame_idx, img0, img1, mcfg)
-    methods_out = timed("methods", phase_methods, traj, imu, frame_idx, img0, img1, fcfg, mcfg, card)
-    os.makedirs(args.out, exist_ok=True)
-    tail, head_state = timed("head", _resume_split, traj, imu, frame_idx, img0, img1, fcfg, mcfg, N_TAIL)
-    prof_out = timed("profile", phase_profile, tail, N_TAIL, args.out)
-    stage_out = timed("stages", phase_stages, tail, N_TAIL)
-    lanes_out = timed("distinct lanes", phase_distinct_lanes, scene, fcfg, mcfg, card)
-    batch_out = timed("batch sweep", phase_batch_sweep, scene, head_state, fcfg, mcfg, card, args.out)
-    split_out = timed("stage split", phase_stage_split, scene, head_state, fcfg, mcfg, card)
-    precision_out = timed("precision", phase_precision, scene, head_state, fcfg, mcfg, card, args.out)
-    entry_out = timed("entry point", phase_entry_point, card)
-    euroc_out = timed("euroc", phase_euroc, scene, card)
-    paths_out = timed("frontend paths", phase_frontend_paths, scene, mcfg, card)
-    stress_out, stress_gate = timed("stress path", phase_stress, card)
-    stress_lanes_out = timed("stress lanes", phase_stress_lanes, card)
-    backend_out = timed("backend", phase_backend, scene, main_res, stress_gate, card, args.out)
-    multiproc_out = timed("multiproc", phase_multiproc, card)
-
+    rows = records["kernels"] + records["kernels, stress inputs"]
     pick = {
         "lk_corr_align": next(r for r in rows if r["name"] == "lk_corr_align" and r["level"] == 0
                               and r["N"] == 144),
@@ -3153,7 +2738,8 @@ def main(argv=None) -> int:
     # Launch counts come from the bench path, lk_corr_align_gain's from the
     # stress path (the bench path runs klt_norm='none', which never launches
     # it).  K2, K1 and K3 have no launch on either path.
-    launches = dict(main_out["launches"], lk_corr_align_gain=stress_out["launches"]["lk_corr_align_gain"])
+    launches = dict(records["main path"]["launches"],
+                    lk_corr_align_gain=records["stress path"]["launches"]["lk_corr_align_gain"])
     kernels = []
     for kname, (source, replaces) in KERNEL_SOURCES.items():
         r = pick[kname]
@@ -3164,19 +2750,12 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kind": name, "build_seconds": build["seconds"],
-                   "build_logs": build["logs"], "kernel_rows": rows, "stack_kernel_rows": stack_rows,
-                   "main_path": main_out, "mode_sweep": sweep_out, "methods": methods_out, "profile": prof_out,
-                   "stages": stage_out, "stress_lanes": stress_lanes_out,
-                   "distinct_lanes": lanes_out, "batch_sweep": batch_out, "stage_split": split_out, "precision": precision_out, "entry_point": entry_out, "euroc": euroc_out,
-                   "frontend_paths": paths_out, "backend": backend_out, "multiproc": multiproc_out,
-                   "stress_path": stress_out, "phase_seconds": phase_seconds, "seconds": time.time() - t_start},
-                  f, indent=1)
+        json.dump(dict(records, phase_seconds=phase_seconds, seconds=time.time() - t_start), f, indent=1)
     print(f"[done] {time.time() - t_start:.1f} s")
-    print(card)
+    device = records["device"]
+    print(device["card"])
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"], "count": device["count"]}}))
     return 0
 
 

@@ -1,50 +1,35 @@
-"""Headline benchmark of the port: full-pipeline VIO throughput on one card.
-
-    python -m msckf_stereo_c_torch.bench
+"""The bench scene and configuration that the port's scripts and tests share.
 
 The counterpart of the repository's ``bench.py`` for ``msckf_stereo_c_torch``:
-the same synthetic EuRoC-resolution scene (752x480 stereo, circle
-trajectory, 600 wall landmarks), the same configuration, and B independent
-sequences stepped together (``parallel.vio_multiseq.run_vio_batch``) with
-the images and the IMU shared by every lane and the states broadcast.  One
-warm-up run, then ``BENCH_REPS`` timed runs with the card synchronised.
+its synthetic EuRoC-resolution scene (752x480 stereo, circle trajectory,
+600 wall landmarks; ``bench_scene``), its configuration from its
+``BENCH_*`` environment variables, read the same way (``bench_configs``),
+and B lanes stepped over the scene with the images and the IMU shared
+(``BatchRun``).  ``scripts/stage_split.py`` reads the knobs as the JAX
+split scripts read bench.py's; ``scripts/fastmotion_precision.py``,
+``chip_smoke.py`` and the CPU tests use the scene.
 
-Prints ONE JSON line on stdout, bench.py's:
-  {"metric": "vio_frames_per_sec_per_chip", "value": N, "unit": "frames/s",
-   "vs_baseline": N / 40.0}
-and on stderr the card's name and power limit, B, the frame count, lane
-0's ATE and the worst lane's ATE.
+``BENCH_FRONTEND_PRECISION`` and ``BENCH_FILTER_PRECISION`` take every
+name, the bf16 ones included; a filter setting the port does not cover
+raises from ``models/msckf.py:check_supported``, and ``BENCH_UNROLL``,
+which unrolls a ``lax.scan`` the port does not have, raises
+``NotImplementedError``; nothing falls back.
 
-Knobs are bench.py's environment variables, read the same way:
-``BENCH_BATCH`` (16), ``BENCH_FRAMES`` (100), ``BENCH_REPS`` (3),
-``BENCH_KLT_NORM``, ``BENCH_NOISE_ADAPTIVE``, ``BENCH_NS_ITERS`` (10) and
-the rest of bench.py's (``BENCH_FRONTEND_PRECISION`` and
-``BENCH_FILTER_PRECISION`` take every name, the bf16 ones included); a
-filter setting the port does not cover raises from
-``models/msckf.py:check_supported``, and ``BENCH_UNROLL``, which unrolls a
-``lax.scan`` the port does not have, raises ``NotImplementedError``;
-nothing falls back.  Runs on the CUDA card; ``main(device="cpu")`` runs on
-the CPU.
+The port is measured by ``bench_vio/`` (``BENCHMARK.json``'s cells), not
+here.
 """
 from __future__ import annotations
 
-import json
 import os
 import subprocess
-import sys
-import time
 from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
 
-from .config import EUROC_CALIB, FilterConfig, FrontendConfig, resolve_device
-from .io.tum import evaluate_ate
+from .config import FilterConfig, FrontendConfig
 from .models import msckf as _msckf
-from .models.frontend import make_frontend_params
-from .models.msckf import make_params
-from .models.runner import pack_imu_batches
-from .parallel.vio_multiseq import batched_gravity_init, batched_init_vio_state, run_vio_batch
+from .parallel.vio_multiseq import run_vio_batch
 from .utils.lanes import map_tree
 
 
@@ -138,37 +123,6 @@ class BatchRun(NamedTuple):
         )
 
 
-def prepare(scene: Scene, batch: int, fcfg, mcfg, method: str, device) -> BatchRun:
-    """bench.py's set-up for ``batch`` lanes: filter and IMU in float32,
-    gravity from the first 200 IMU samples."""
-    dev = resolve_device(device)
-    f32 = torch.float32
-    T = scene.frame_idx.shape[0]
-    states = batched_init_vio_state(fcfg, mcfg, EUROC_CALIB, scene.img0.shape[1:], batch, f32, f32, dev)
-    states = batched_gravity_init(states, scene.imu.gyro[:200], scene.imu.acc[:200])
-    batches = pack_imu_batches(
-        scene.imu.t, scene.imu.gyro, scene.imu.acc, scene.frame_t, mcfg.max_imu_per_frame, np.float32,
-        device=dev,
-    )
-    return BatchRun(
-        states=states,
-        imgs0=torch.as_tensor(scene.img0, dtype=f32).to(dev),
-        imgs1=torch.as_tensor(scene.img1, dtype=f32).to(dev),
-        times=torch.as_tensor(scene.frame_t, dtype=f32).to(dev).expand(batch, T),
-        imu=map_tree(lambda x: x.expand(batch, *x.shape), batches),
-        fparams=make_frontend_params(EUROC_CALIB, f32, dev),
-        mparams=make_params(mcfg, EUROC_CALIB, f32, dev),
-        fcfg=fcfg, mcfg=mcfg, method=method, device=dev,
-    )
-
-
-def lane_ates(scene: Scene, positions: np.ndarray) -> np.ndarray:
-    """ATE RMSE of each lane's positions (B, T, 3) against the scene's
-    ground truth."""
-    t, gt = scene.frame_t, scene.traj.p[scene.frame_idx]
-    return np.array([evaluate_ate(t, p, t, gt).rmse for p in positions])
-
-
 def card_description(device: torch.device) -> str:
     """The card's name and power limit as nvidia-smi gives them (``cpu``
     on the CPU)."""
@@ -183,53 +137,3 @@ def card_description(device: torch.device) -> str:
         out = []
     index = device.index or 0
     return out[index].strip() if len(out) > index else f"{torch.cuda.get_device_name(index)}, power limit not read"
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def main(device=None) -> dict:
-    """Run the benchmark; returns the printed JSON object."""
-    env = os.environ
-    fcfg, mcfg, method = bench_configs(env)
-    dev = resolve_device(device)
-    B = int(env.get("BENCH_BATCH", "16"))
-    n_frames = int(env.get("BENCH_FRAMES", "100"))
-    reps = int(env.get("BENCH_REPS", "3"))
-
-    scene = bench_scene(n_frames)
-    run = prepare(scene, B, fcfg, mcfg, method, dev)
-
-    t0 = time.perf_counter()
-    run()
-    _sync(dev)
-    warmup = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        _, poses, _, _ = run()
-    _sync(dev)
-    dt = (time.perf_counter() - t0) / reps
-
-    fps = round(B * n_frames / dt, 2)
-    result = {
-        "metric": "vio_frames_per_sec_per_chip",
-        "value": fps,
-        "unit": "frames/s",
-        "vs_baseline": round(fps / 40.0, 3),  # of the printed value, so the two always agree
-    }
-    print(json.dumps(result))
-    ates = lane_ates(scene, poses.p.cpu().numpy())
-    print(
-        f"# device={card_description(dev)} frames={n_frames} batch={B} reps={reps} "
-        f"warmup={warmup:.1f}s run={dt:.3f}s method={method} klt_norm={fcfg.klt_norm} "
-        f"ate_rmse={ates[0]:.5f}m ate_rmse_worst_lane={ates.max():.5f}m",
-        file=sys.stderr,
-    )
-    return result
-
-
-if __name__ == "__main__":
-    main()

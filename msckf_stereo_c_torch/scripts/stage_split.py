@@ -26,8 +26,6 @@ stage and the kernels that take it.  Runs on the CUDA card;
 """
 from __future__ import annotations
 
-import contextlib
-import importlib
 import os
 import time
 from typing import Callable, Mapping
@@ -37,31 +35,6 @@ import torch
 
 HEAD_FRAMES = 52  # frames before the split's: the camera window is full from here on
 WARMUP_FRAMES = 2
-
-# Stage functions of one frame: (module, attribute, key, label), in the
-# order a frame runs them, the two totals last.  The stage function is the
-# module attribute, or its entry ``key`` where the attribute is a dict (the
-# front end calls its LK through the ``_KLT_IMPLS`` table).  ``wrapped``
-# replaces them for ``chip_smoke.py``'s synchronised stage times; the split
-# itself reads the program's own spans.
-STAGES = (
-    ("msckf_stereo_c_torch.models.vio", "pyramids_for", None, "frontend: pyramids"),
-    ("msckf_stereo_c_torch.models.frontend", "optical_flow_lk_corr_l0", None, "frontend: temporal LK"),
-    ("msckf_stereo_c_torch.models.frontend", "_detect_candidates", None, "frontend: FAST candidates"),
-    ("msckf_stereo_c_torch.models.frontend", "_KLT_IMPLS", "corr", "frontend: candidate coarse walk"),
-    ("msckf_stereo_c_torch.models.frontend", "stereo_anchor_lr_fused", None, "frontend: fused stereo fine level"),
-    ("msckf_stereo_c_torch.models.frontend", "_allocate_new_features", None, "frontend: allocate"),
-    ("msckf_stereo_c_torch.models.frontend", "_prune_grid_features", None, "frontend: prune"),
-    ("msckf_stereo_c_torch.models.frontend", "_publish", None, "frontend: publish"),
-    ("msckf_stereo_c_torch.models.msckf", "batched_propagate", None, "filter: propagate"),
-    ("msckf_stereo_c_torch.models.msckf", "augment_state", None, "filter: augment"),
-    ("msckf_stereo_c_torch.models.msckf", "add_feature_observations", None, "filter: observe"),
-    ("msckf_stereo_c_torch.models.msckf", "_remove_lost_features", None, "filter: lost-track update"),
-    ("msckf_stereo_c_torch.models.msckf", "_prune_cam_states", None, "filter: camera prune"),
-    ("msckf_stereo_c_torch.models.msckf", "_online_reset", None, "filter: online reset"),
-    ("msckf_stereo_c_torch.models.vio", "_run_frontend", None, "frontend total"),
-    ("msckf_stereo_c_torch.models.vio", "batched_filter_step", None, "filter total"),
-)
 
 # The program's spans (``utils/timing.py:span``) a frame opens under
 # ``vio.step``, as the split's labels: a stage's span name, or
@@ -92,39 +65,6 @@ def parent_of(label: str):
     if "/" in label:
         return label.split("/")[0]
     return FRONTEND_TOTAL if label.startswith("frontend") else FILTER_TOTAL
-
-
-def stage_function(stage):
-    """The function a stage entry names, as it stands now."""
-    mod_name, attr, key, _ = stage
-    obj = getattr(importlib.import_module(mod_name), attr)
-    return obj if key is None else obj[key]
-
-
-def _set_stage_function(stage, fn) -> None:
-    mod_name, attr, key, _ = stage
-    mod = importlib.import_module(mod_name)
-    if key is None:
-        setattr(mod, attr, fn)
-    else:
-        getattr(mod, attr)[key] = fn
-
-
-@contextlib.contextmanager
-def wrapped(stages, make_wrapper):
-    """Within the scope each stage function of ``stages`` is replaced by
-    ``make_wrapper(fn, label)``; each is restored on exit, also when the
-    scope raises."""
-    saved = []
-    try:
-        for stage in stages:
-            fn = stage_function(stage)
-            saved.append((stage, fn))
-            _set_stage_function(stage, make_wrapper(fn, stage[-1]))
-        yield
-    finally:
-        for stage, fn in reversed(saved):
-            _set_stage_function(stage, fn)
 
 
 def kernel_key(name: str) -> str:

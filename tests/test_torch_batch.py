@@ -11,7 +11,6 @@ Sizes and tolerances are tests/test_torch_vio.py's: image float32, filter
 float64, Schur method with Newton-Schulz solves, the JAX Pallas LK loop in
 interpret mode; feature ids and validity identical, normalized observations
 within 5e-2 px (divided by fx), pose within 1e-4 m, camera counts equal."""
-import json
 
 import jax
 import jax.numpy as jnp
@@ -256,22 +255,6 @@ def test_run_vio_batch_shared_images(lanes):
     assert int(metrics["max_online_reset_count"]) == int(states.filt.online_reset_count.max())
 
 
-def test_bench_main_prints_the_headline_line(monkeypatch, capsys):
-    """The port's bench on the CPU, B=2 over 2 frames: one JSON line with
-    bench.py's four keys on stdout, the ATE line on stderr."""
-    for name, value in dict(BENCH_BATCH="2", BENCH_FRAMES="2", BENCH_REPS="1").items():
-        monkeypatch.setenv(name, value)
-    tbench.main(device="cpu")
-    out, err = capsys.readouterr()
-    lines = out.strip().splitlines()
-    assert len(lines) == 1
-    result = json.loads(lines[0])
-    assert set(result) == {"metric", "value", "unit", "vs_baseline"}
-    assert result["metric"] == "vio_frames_per_sec_per_chip" and result["unit"] == "frames/s"
-    assert result["value"] > 0 and result["vs_baseline"] == round(result["value"] / 40.0, 3)
-    assert "batch=2" in err and "ate_rmse_worst_lane=" in err
-
-
 @pytest.mark.parametrize("env", [dict(BENCH_FILTER_PRECISION="bfloat16"), dict(BENCH_TEMPORAL_LEVELS="2"),
                                  dict(BENCH_KLT="gather"), dict(BENCH_UNROLL="2")])
 def test_bench_unsupported_knobs_raise(monkeypatch, env):
@@ -290,13 +273,12 @@ def test_bench_unsupported_knobs_raise(monkeypatch, env):
                                                          env.get("BENCH_KLT", "corr"))
         return
     with pytest.raises(NotImplementedError):
-        tbench.main(device="cpu")
+        tbench.bench_configs()
 
 
 def test_batched_entry_points_need_a_device_or_cuda(monkeypatch):
-    """``run_vio_batch``, ``batched_init_vio_state`` and ``bench.main``
-    default to the card; without CUDA they raise unless the caller names a
-    device."""
+    """``run_vio_batch`` and ``batched_init_vio_state`` default to the card;
+    without CUDA they raise unless the caller names a device."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fcfg, mcfg = tconfig.FrontendConfig(max_features=8), tconfig.FilterConfig(max_cam_state_size=4)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -307,6 +289,3 @@ def test_batched_entry_points_need_a_device_or_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tmulti.run_vio_batch(states, np.zeros((1, 64, 96)), np.zeros((1, 64, 96)), np.zeros((2, 1)), imu,
                              None, None, fcfg, mcfg)
-    monkeypatch.setenv("BENCH_FRAMES", "1")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tbench.main()

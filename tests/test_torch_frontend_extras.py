@@ -6,7 +6,8 @@ tracker state (equal dicts); and the EuRoC app with a YAML that sets the
 options this slice ported (``temporal_levels: 2``, ``ransac_enabled:
 true``, ``klt_impl: gather``): ``run_euroc --device cpu`` on six frames
 gives ``run_vio_sequence``'s poses under the loaded config (1e-9 m, filter
-in float64), and the loaded config carries the three keys."""
+in float64), and the loaded config carries the three keys.  Also
+``chip_smoke.py``'s phase table: it runs every phase the module defines."""
 import os
 
 import numpy as np
@@ -77,6 +78,16 @@ def test_launches_per_frame_counts_the_wrapper_calls(scene, monkeypatch, name):
     tfe.frontend_step(tfe.init_tracker_state(cfg), p0, p0, p1, g, dt, first, tfe.make_frontend_params(CALIB), cfg,
                       v if cfg.translation_seed else None)
     assert calls == chip_smoke.launches_per_frame(cfg, img0.shape[1:])
+
+
+def test_phase_table_runs_every_phase_once():
+    """``chip_smoke.PHASES`` names each ``phase_*`` function of the module
+    exactly once, each under a label of its own."""
+    labels = [label for label, _ in chip_smoke.PHASES]
+    run = sorted(phase.__name__ for _, phase in chip_smoke.PHASES)
+    defined = sorted(name for name, obj in vars(chip_smoke).items() if name.startswith("phase_") and callable(obj))
+    assert run == defined
+    assert len(set(labels)) == len(labels)
 
 
 def test_feature_lifetime_statistics_matches_jax(scene):

@@ -58,7 +58,7 @@ def test_no_source_names_the_jax_package_in_code(path):
 
 
 def test_batched_entry_modules_are_covered():
-    """The batched-sequence runner and the benchmark entry point are among
+    """The batched-sequence runner and the bench scene's module are among
     the modules imported without JAX and scanned for its names above."""
     new = {"msckf_stereo_c_torch.parallel.vio_multiseq", "msckf_stereo_c_torch.bench"}
     assert new <= set(_port_modules())
