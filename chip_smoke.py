@@ -30,15 +30,19 @@ if it fails:
    ``lm_triangulate`` at the cells' (B, 32, 20) for B = 1, 5, 512 in
    float32 and B=1 in float64 against its plain version, the masked LM
    loop, over windows of 16,384 tracks launched B lanes a call
-   (``lm_rows``, by tests/_lm_cases.py:lm_hold);
+   (``lm_rows``, by tests/_lm_cases.py:lm_hold); ``undistort_points`` on
+   B x 144 EuRoC pixels for B = 1, 5, 512 in float32 against its plain
+   version, bit-equal without R and within UNDISTORT_ULPS with it
+   (``undistort_rows``);
 5. kernels on a stack: the four kernels of the main path on a B=4 image stack
    with a per-window image index, against their plain versions and against
    one launch per lane (bit-equal);
 6. main path: ``run_vio_sequence`` over the bench scene (752x480 stereo,
    the configuration ``bench.py`` runs, B=1) with the kernel launch counts
    zeroed just before and read just after (7 ``lk_corr_align``, 4
-   ``extract_template``, 1 ``resample_template``, 1 ``fast_grid_corners``
-   and none of the others per frame: "7 / 4 / 1 / 1" below; here and in
+   ``extract_template``, 1 ``resample_template``, 1 ``fast_grid_corners``,
+   7 ``undistort_points`` and none of the others per frame: "7 / 4 / 1 / 1"
+   below, with the undistortions of ``launches_per_frame``; here and in
    every later phase also the filter's ``lm_triangulate``, once a
    lost-track update and once a camera prune: T to 2T over T frames,
    ``launches_match``); frames/s, ATE, tracks, host syncs;
@@ -102,7 +106,8 @@ if it fails:
    (721 stereo frames rendered on the card with every stress channel on,
    ``klt_norm='gain'``), launch counts zeroed just before and read just
    after (7 ``lk_corr_align_gain``, 4 ``extract_template``, 1
-   ``resample_template`` and none of the others per frame), the gate's ATE
+   ``resample_template``, 1 ``fast_grid_corners``, 7 ``undistort_points``
+   and none of the others per frame), the gate's ATE
    and track bars, frames/s and render time;
 15. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
    ``sim/stress.py:run_stress_lanes`` run over STRESS_LANE_SECONDS of the
@@ -283,6 +288,11 @@ KERNEL_SOURCES = {
         "msckf_stereo_c_torch/csrc/lm_triangulate.cu",
         "msckf_stereo_c_tpu/models/triangulation.py:triangulate_track",
     ),
+    # No Pallas kernel: the jnp chain of undistort_points, which XLA fused.
+    "undistort_points": (
+        "msckf_stereo_c_torch/csrc/undistort_points.cu",
+        "msckf_stereo_c_tpu/ops/camera.py:undistort_points",
+    ),
 }
 
 
@@ -462,7 +472,7 @@ def phase_kernels(img0, img1, fcfg):
     rows += resample_rows(pyr_a[0], pyr_b[0], corners, fcfg)
     rows += lk_rows("K1", pyr_a[0], pyr_b[0], fcfg, "none")
     rows += align_rows(pyr_a, pyr_b, corners, fcfg, "none")
-    return rows + fast_rows(img0, fcfg) + qr_rows() + lm_rows()
+    return rows + fast_rows(img0, fcfg) + qr_rows() + lm_rows() + undistort_rows()
 
 
 FAST_BATCHES = (1, 512)  # the live cell's lanes and the eval cell's
@@ -711,6 +721,113 @@ def lm_rows(shapes=LM_SHAPES):
               f"({n['max_pos_gap_m']:.3g}), widest valid {k['max_gap_valid_m']:.3g} m ({n['max_gap_valid_m']:.3g}), "
               f"most steps {k['max_steps']}; per call {ms:.4f} ms (device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms "
               f"(device {_fmt(plain_dev)}, {plain_events} device events), bound {b:.3g} ms ({by})")
+    return rows
+
+
+# The cells' undistortions: B x 144 points (96 tracks and 48 candidates a
+# lane) at the live, protocol and eval cells' B.
+UNDISTORT_LANES = (1, 5, 512)
+# The radtan iteration's 28 operations 20 times, and the normalizing's 4.
+UNDISTORT_OPS_PER_POINT = 4 + 28 * 20
+# Equidistant coefficients on EuRoC's intrinsics (tests/test_camera.py's).
+EQUIDISTANT_DIST = (-0.01, 0.003, -0.001, 0.0002)
+UNDISTORT_ULPS = 2  # the R product (a GEMM in the chain) and tan, in units in the last place
+
+
+def undistort_case(shape, cam=0, model="radtan", rotate=False, dtype=None, device=None, seed=0):
+    """(pixels, intrinsics, dist, R or None) for ``undistort_points``:
+    ``shape`` (..., 2) pixels uniform over the 752x480 image, the first four
+    its corners; EuRoC cam ``cam``'s intrinsics and, for 'radtan', its
+    distortion (EQUIDISTANT_DIST for 'equidistant'); with ``rotate`` the
+    extrinsic rotation R_c0_c1 of the front end's cheirality gate."""
+    import numpy as np
+    import torch
+
+    from msckf_stereo_c_torch.config import EUROC_CALIB
+
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(0, 751, shape[:-1]), rng.uniform(0, 479, shape[:-1])], -1).reshape(-1, 2)
+    pts[:4] = np.array([[0, 0], [751, 0], [0, 479], [751, 479]])[: len(pts)]
+    c = (EUROC_CALIB.cam0, EUROC_CALIB.cam1)[cam]
+    D = c.distortion_coeffs if model == "radtan" else EQUIDISTANT_DIST
+    R = EUROC_CALIB.T_cam0_cam1_mat()[:3, :3] if rotate else None
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype or torch.float32, device=device)
+
+    return t(pts.reshape(shape)), t(c.intrinsics), t(D), None if R is None else t(R)
+
+
+def ulp_gap(a, b) -> int:
+    """Largest distance in units in the last place between two float
+    tensors of one dtype (+0 and -0 are 0 apart)."""
+    import torch
+
+    ibits = torch.int32 if a.dtype == torch.float32 else torch.int64
+    lo = torch.iinfo(ibits).min
+
+    def ordered(x):
+        i = x.contiguous().view(ibits).to(torch.int64)
+        return torch.where(i < 0, lo - i, i)
+
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def undistort_rows(lanes=UNDISTORT_LANES):
+    """``undistort_points`` against its plain version
+    (``undistort_points_reference``) on B x 144 EuRoC cam0 pixels, float32:
+    radtan without R bit-equal (the publish and epipolar calls), with R
+    (the candidates' guess and the cheirality gate) within UNDISTORT_ULPS;
+    one launch a call.  Per-call and device time of the call without R;
+    the bound, 16 bytes and UNDISTORT_OPS_PER_POINT operations a point; the
+    plain version's per-call and device time and its device events, which
+    is the chain the kernel replaces."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from msckf_stereo_c_torch.ops import _cuda
+    from msckf_stereo_c_torch.ops.camera import undistort_points, undistort_points_reference
+
+    dev = torch.device("cuda")
+    rows = []
+    for B in lanes:
+        pts, K, D, R = undistort_case((B, 144, 2), rotate=True, device=dev, seed=B)
+        before = _cuda.launch_counts["undistort_points"]
+        got = undistort_points(pts, K, D)
+        got_r = undistort_points(pts, K, D, R=R)
+        check(_cuda.launch_counts["undistort_points"] == before + 2, "undistort_points: not one launch a call")
+        want, want_r = undistort_points_reference(pts, K, D), undistort_points_reference(pts, K, D, R=R)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(want).all() and torch.isfinite(want_r).all()),
+              "undistort_points: the plain chain gave a non-finite point")
+        check(torch.equal(got, want), f"undistort_points B={B}: radtan differs from the plain chain")
+        ulps = ulp_gap(got_r, want_r)
+        check(ulps <= UNDISTORT_ULPS, f"undistort_points B={B}: with R {ulps} ulps from the plain chain")
+        err = float((got_r - want_r).abs().max())
+
+        def kernel():
+            return undistort_points(pts, K, D)
+
+        def plain():
+            return undistort_points_reference(pts, K, D)
+
+        ms = cuda_ms(kernel, reps=200)
+        dev_ms = device_ms(kernel, "undistort_points_kernel", reps=50)
+        plain_ms = cuda_ms(plain, reps=10, warmup=2)
+        plain_dev = device_ms_per_call(plain, reps=10)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            plain()
+            torch.cuda.synchronize()
+        plain_events = sum(1 for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA)
+        n = B * 144
+        b, by = bound_ms(n * 16, n * UNDISTORT_OPS_PER_POINT)
+        rows.append(dict(name="undistort_points", B=B, points=n, max_abs_err=err, ulps_with_R=ulps, ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms, plain_device_ms=plain_dev,
+                         plain_device_events=plain_events, library_ms=None, bound_ms=b, bound_by=by))
+        print(f"[undistort] B={B}, {n} points: radtan bit-equal to the plain chain, with R {ulps} ulps ({err:.3g}); "
+              f"per call {ms:.4f} ms (device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms (device {_fmt(plain_dev)}, "
+              f"{plain_events} device events), bound {b:.3g} ms ({by})")
     return rows
 
 
@@ -1837,10 +1954,15 @@ def launches_per_frame(fcfg, img_shape=(480, 752)) -> dict:
       the unfused left-right pass (one level);
     - ``klt_impl`` 'gather' and 'gemm' launch no LK kernel (the gather LK
       is plain PyTorch);
-    - FAST is one ``fast_grid_corners`` under every configuration.
+    - FAST is one ``fast_grid_corners`` under every configuration;
+    - ``undistort_points``: 6 (the candidates' guess, the epipolar gate's
+      two, the cheirality gate, the publish's two), one more for the
+      translation-aware temporal prediction (``translation_seed``), and two
+      a camera under RANSAC (``ransac_enabled``).
     """
     counts = dict.fromkeys(KERNEL_SOURCES, 0)
     counts["fast_grid_corners"] = 1
+    counts["undistort_points"] = 6 + int(fcfg.translation_seed) + 4 * int(fcfg.ransac_enabled)
     if fcfg.klt_impl != "corr":
         return counts
     P, L = fcfg.patch_size, fcfg.pyramid_levels
@@ -2734,6 +2856,7 @@ def main(argv=None) -> int:
         "qr_compress": next(r for r in rows if r["name"] == "qr_compress" and r["dtype"] == "float32"),
         "lm_triangulate": next(r for r in rows if r["name"] == "lm_triangulate" and r["dtype"] == "float32"
                                and r["B"] == 512),
+        "undistort_points": next(r for r in rows if r["name"] == "undistort_points" and r["B"] == 512),
     }
     # Launch counts come from the bench path, lk_corr_align_gain's from the
     # stress path (the bench path runs klt_norm='none', which never launches

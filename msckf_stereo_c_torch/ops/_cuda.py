@@ -52,6 +52,7 @@ _SIGNATURES = {
     "fast_grid_corners": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P),
     "qr_compress": (_P, _P, _P, _I, _I, _I, _I, _P),
     "lm_triangulate": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P),
+    "undistort_points": (_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

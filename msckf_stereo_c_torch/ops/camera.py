@@ -1,11 +1,20 @@
 """Camera distortion models, radtan + equidistant (port of
 ``msckf_stereo_c_tpu/ops/camera.py``).  Points are (..., 2) tensors and
-intrinsics (4,) [fx, fy, cx, cy]."""
+intrinsics (4,) [fx, fy, cx, cy].
+
+On a CUDA tensor ``undistort_points`` is one launch of the hand-written
+kernel ``undistort_points`` (``csrc/undistort_points.cu``): the normalizing,
+the 20 fixed-point iterations, the rotation and the reprojection of every
+point in one pass.  On a CPU tensor it is the plain version,
+``undistort_points_reference``."""
 from __future__ import annotations
 
 import torch
 
+from . import _cuda
+
 _UNDISTORT_ITERS = 20
+_MODELS = {"radtan": 0, "equidistant": 1}
 
 
 def pixel_to_normalized(pts: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:
@@ -62,7 +71,7 @@ def equidistant_undistort_normalized(pts_d: torch.Tensor, dist: torch.Tensor) ->
     return pts_d * (torch.tan(theta) / theta_d)[..., None]
 
 
-def undistort_points(
+def undistort_points_reference(
     pts: torch.Tensor,
     intrinsics: torch.Tensor,
     dist: torch.Tensor,
@@ -70,8 +79,8 @@ def undistort_points(
     R: torch.Tensor | None = None,
     new_intrinsics: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Pixel points -> undistorted normalized points, optionally rotated by
-    ``R`` and reprojected with ``new_intrinsics``."""
+    """Plain version of ``undistort_points``: the chain of tensor ops, about
+    28 an iteration."""
     xn = pixel_to_normalized(pts, intrinsics)
     if model == "equidistant":
         xu = equidistant_undistort_normalized(xn, dist)
@@ -84,6 +93,49 @@ def undistort_points(
     if new_intrinsics is not None:
         xu = normalized_to_pixel(xu, new_intrinsics)
     return xu
+
+
+def undistort_points(
+    pts: torch.Tensor,
+    intrinsics: torch.Tensor,
+    dist: torch.Tensor,
+    model: str = "radtan",
+    R: torch.Tensor | None = None,
+    new_intrinsics: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Pixel points -> undistorted normalized points, optionally rotated by
+    ``R`` and reprojected with ``new_intrinsics``.  ``model`` 'equidistant'
+    inverts the equidistant model, any other name radtan.  Every tensor lies
+    on the points' device in their dtype."""
+    given = [t for t in (intrinsics, dist, R, new_intrinsics) if t is not None]
+    if any(t.device != pts.device for t in given):
+        raise ValueError("undistort_points: points, intrinsics, dist, R and new_intrinsics must lie on one device")
+    if any(t.dtype != pts.dtype for t in given):
+        raise TypeError(f"undistort_points: intrinsics, dist, R and new_intrinsics must be in the points' {pts.dtype}")
+    if pts.device.type == "cpu":
+        return undistort_points_reference(pts, intrinsics, dist, model, R, new_intrinsics)
+    if pts.device.type != "cuda":
+        raise ValueError(f"unsupported device {pts.device}")
+    if pts.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"undistort_points takes float32 or float64 points, got {pts.dtype}")
+    shapes = ((intrinsics, (4,)), (dist, (4,)), (R, (3, 3)), (new_intrinsics, (4,)))
+    if pts.dim() == 0 or pts.shape[-1] != 2 or any(t is not None and t.shape != s for t, s in shapes):
+        raise ValueError("undistort_points takes (..., 2) points, (4,) intrinsics, dist and new_intrinsics "
+                         "and a (3, 3) R")
+    out = torch.empty(pts.shape, dtype=pts.dtype, device=pts.device)
+    n = pts.numel() // 2
+    if n == 0:  # the kernel launches nothing for it, so nothing is counted
+        return out
+    pts, intrinsics, dist = pts.contiguous(), intrinsics.contiguous(), dist.contiguous()
+    R = None if R is None else R.contiguous()
+    new_intrinsics = None if new_intrinsics is None else new_intrinsics.contiguous()
+    _cuda.launch(
+        "undistort_points", pts.data_ptr(), intrinsics.data_ptr(), dist.data_ptr(),
+        None if R is None else R.data_ptr(), None if new_intrinsics is None else new_intrinsics.data_ptr(),
+        out.data_ptr(), n, _MODELS.get(model, 0), _UNDISTORT_ITERS, int(pts.dtype == torch.float64),
+        torch.cuda.current_stream(pts.device).cuda_stream,
+    )
+    return out
 
 
 def distort_points(

@@ -23,7 +23,9 @@ from msckf_stereo_c_torch.apps import run_euroc
 from msckf_stereo_c_torch.io import euroc as teuroc
 from msckf_stereo_c_torch.models import frontend as tfe
 from msckf_stereo_c_torch.models.vio import run_vio_sequence
+from msckf_stereo_c_torch.ops import camera as tcam
 from msckf_stereo_c_torch.ops import klt_corr as tkc
+from msckf_stereo_c_torch.ops import ransac as transac
 from msckf_stereo_c_torch.sim.euroc_dataset import to_uint8, write_euroc
 from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
 from msckf_stereo_c_tpu.sim.render import render_stereo_sequence
@@ -72,6 +74,13 @@ def test_launches_per_frame_counts_the_wrapper_calls(scene, monkeypatch, name):
         return _fn(img, *args, **kwargs)
 
     monkeypatch.setattr(tfe, "detect_grid_corners", fast_counted)
+
+    def undistort_counted(pts, *args, _fn=tcam.undistort_points, **kwargs):
+        calls["undistort_points"] += int(pts.numel() > 0)
+        return _fn(pts, *args, **kwargs)
+
+    monkeypatch.setattr(tfe, "undistort_points", undistort_counted)
+    monkeypatch.setattr(transac, "undistort_points", undistort_counted)
     cfg = tconfig.FrontendConfig(max_features=48, **LAUNCH_CONFIGS[name])
     p0, p1 = tfe.pyramids_for(torch.as_tensor(img0[0]), cfg), tfe.pyramids_for(torch.as_tensor(img1[0]), cfg)
     g, dt, first, v = (torch.as_tensor(np.asarray(x)) for x in frame_inputs(traj, imu, IDX, 0))

@@ -1,4 +1,4 @@
-"""The port's ten hand-written CUDA kernels, their wrappers and their
+"""The port's eleven hand-written CUDA kernels, their wrappers and their
 plain versions.
 
 The tests marked ``cuda`` hold each kernel against its plain version on the
@@ -890,3 +890,67 @@ def test_lm_triangulate_kernel_rejects_bad_input(cuda_device):
         tri.triangulate_tracks(*big)
     empty = tri.triangulate_tracks(args[0][:, :0], args[1][:, :0], *args[2:])
     assert empty.pos_w.shape == (2, 0, 3) and empty.valid.shape == (2, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rotate", [False, True])
+@pytest.mark.parametrize("model", ["radtan", "equidistant"])
+@pytest.mark.parametrize("shape", [(0, 2), (96, 2), (512, 144, 2), "strided"])
+def test_undistort_points_kernel_matches_plain(cuda_device, shape, model, rotate, dtype):
+    """Bit-equal to the plain chain for radtan without R, within
+    chip_smoke.UNDISTORT_ULPS otherwise, for EuRoC cam0 and cam1 over the
+    whole image; one launch a non-empty call, none for an empty one, and
+    no host read (torch's sync debug mode raises on one)."""
+    from msckf_stereo_c_torch.ops import camera as tcam
+
+    for cam in (0, 1):
+        full = (5, 192, 2) if shape == "strided" else shape
+        pts, K, D, R = chip_smoke.undistort_case(full, cam, model, rotate, dtype, cuda_device, seed=cam)
+        if shape == "strided":
+            pts = pts[:, ::2]
+        before = _cuda.launch_counts["undistort_points"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = tcam.undistort_points(pts, K, D, model, R)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert _cuda.launch_counts["undistort_points"] == before + int(pts.numel() > 0)
+        want = tcam.undistort_points_reference(pts, K, D, model, R)
+        assert got.shape == want.shape and got.dtype == dtype
+        assert bool(torch.isfinite(want).all())
+        if model == "radtan" and not rotate:
+            assert torch.equal(got, want)
+        else:
+            assert chip_smoke.ulp_gap(got, want) <= chip_smoke.UNDISTORT_ULPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["radtan", "equidistant"])
+def test_undistort_points_kernel_reprojects(cuda_device, model):
+    """``new_intrinsics`` (cam1's) after R, against the plain chain."""
+    from msckf_stereo_c_torch.ops import camera as tcam
+
+    pts, K, D, R = chip_smoke.undistort_case((256, 2), 0, model, True, device=cuda_device, seed=4)
+    K1 = chip_smoke.undistort_case((1, 2), 1, device=cuda_device)[1]
+    got = tcam.undistort_points(pts, K, D, model, R, K1)
+    want = tcam.undistort_points_reference(pts, K, D, model, R, K1)
+    assert chip_smoke.ulp_gap(got, want) <= chip_smoke.UNDISTORT_ULPS
+
+
+@pytest.mark.cuda
+def test_undistort_points_kernel_rejects_bad_input(cuda_device):
+    from msckf_stereo_c_torch.ops import camera as tcam
+
+    pts, K, D, R = chip_smoke.undistort_case((8, 2), rotate=True, device=cuda_device)
+    with pytest.raises(TypeError):
+        tcam.undistort_points(pts.half(), K.half(), D.half())
+    with pytest.raises(TypeError):
+        tcam.undistort_points(pts, K, D.double())
+    with pytest.raises(ValueError, match="device"):
+        tcam.undistort_points(pts, K.cpu(), D)
+    with pytest.raises(ValueError):
+        tcam.undistort_points(pts[:, :1], K, D)
+    with pytest.raises(ValueError):
+        tcam.undistort_points(pts, K, D, R=R[:2])

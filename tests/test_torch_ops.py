@@ -93,6 +93,38 @@ def test_camera(model):
         )
 
 
+@pytest.mark.parametrize("model", ["radtan", "equidistant"])
+def test_undistort_points_on_cpu_is_the_plain_version_and_launches_nothing(model):
+    from msckf_stereo_c_torch.ops import _cuda
+
+    rng = np.random.default_rng(3)
+    K = np.asarray(EUROC_CALIB.cam1.intrinsics)
+    D = np.asarray(EUROC_CALIB.cam1.distortion_coeffs) if model == "radtan" else np.array([-0.01, 0.003, -0.001, 2e-4])
+    R = np.asarray(EUROC_CALIB.T_cam0_cam1_mat()[:3, :3])
+    pts = np.stack([rng.uniform(0, 751, (3, 40)), rng.uniform(0, 479, (3, 40))], -1)
+    before = dict(_cuda.launch_counts)
+    for dtype in (torch.float64, torch.float32):
+        p, k, d, r = (torch.as_tensor(a, dtype=dtype) for a in (pts, K, D, R))
+        for rot, new in ((None, None), (r, None), (r, k)):
+            got = tcam.undistort_points(p, k, d, model, rot, new)
+            assert got.shape == p.shape and got.dtype == dtype
+            assert torch.equal(got, tcam.undistort_points_reference(p, k, d, model, rot, new))
+    assert _cuda.launch_counts == before
+
+
+def test_undistort_points_checks_its_arguments():
+    pts = torch.zeros((4, 2))
+    K, D = torch.tensor([458.0, 457.0, 367.0, 248.0]), torch.zeros(4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tcam.undistort_points(pts.to("meta"), K.to("meta"), D.to("meta"))
+    with pytest.raises(ValueError, match="one device"):
+        tcam.undistort_points(pts, K.to("meta"), D)
+    with pytest.raises(TypeError):
+        tcam.undistort_points(pts, K.double(), D)
+    with pytest.raises(TypeError):
+        tcam.undistort_points(pts, K, D, R=torch.eye(3, dtype=torch.float64))
+
+
 def test_lie_and_quaternion():
     rng = np.random.default_rng(2)
     phi = np.concatenate([rng.normal(size=(20, 3)) * 0.7, rng.normal(size=(4, 3)) * 1e-9])
