@@ -95,7 +95,7 @@ if it fails:
    752x480 through ``run_vio_sequence`` (``phase_frontend_paths``): the
    fast-motion scene at temporal LK depths 2 and 4, and 1 where the
    phase's 100 s allow it, with tests/test_fast_motion.py's bars, the reference's own tracker
-   (``REFERENCE_TRACKER``) over the 60 bench frames with its RANSAC
+   (``reference_tracker()``) over the 60 bench frames with its RANSAC
    rejections counted, and ``BENCH_PATHS`` over 20 bench frames each; every
    run's launches exact (``launches_per_frame``), frames/s, ATE, and its
    host syncs by site, every site one the bench configuration has; then
@@ -229,11 +229,17 @@ FAST_LAST = (1, 0.13)
 PATHS_SECONDS = 100.0
 PATH_FRAMES = 20
 SYNC_FRAMES = 10
-REFERENCE_TRACKER = dict(
-    pyramid_levels=4, temporal_levels=4, stereo_levels=4, tmpl_carry=False, anchor_refine=False,
-    translation_seed=False, stereo_lr_threshold=0.0, presmooth=False, fast_threshold=10, cand_budget=0,
-    ransac_enabled=True,
-)
+
+
+def reference_tracker() -> dict:
+    """msckf_vio's own image processor: the ``FrontendConfig`` fields of the
+    benchmark's euroc-v101-msckfvio configuration, so the paths phase runs
+    what its cell runs."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench_vio/configs/euroc-v101-msckfvio.json")
+    with open(path) as f:
+        return json.load(f)["frontend"]
+
+
 BENCH_PATHS = {
     "unfused, carried templates, standalone anchor": dict(stereo_lr_threshold=0.0),
     "left-right check on candidates only": dict(stereo_lr_survivors=False),
@@ -2326,7 +2332,7 @@ def phase_frontend_paths(scene, mcfg, card):
        card) at each temporal depth of FAST_TLEVELS, and of FAST_LAST last
        if it fits: min tracks over the last 20 frames > 15 and the test's
        ATE bar;
-    b. the reference's own tracker (REFERENCE_TRACKER) over the FRAMES
+    b. the reference's own tracker (``reference_tracker()``) over the FRAMES
        bench frames: ATE < 0.13 m, and the tracks RANSAC rejects counted
        on the card (the rejections summed into a device tensor, read once
        after the run);
@@ -2383,7 +2389,7 @@ def phase_frontend_paths(scene, mcfg, card):
 
     ransac.two_point_ransac = counted
     try:
-        o, _ = _path_run("reference tracker", FrontendConfig(**REFERENCE_TRACKER), mcfg, *bench, allowed, card)
+        o, _ = _path_run("reference tracker", FrontendConfig(**reference_tracker()), mcfg, *bench, allowed, card)
     finally:
         ransac.two_point_ransac = two_point
     o["ransac_rejections"] = int(rejected)  # both cameras, the sync-counted frames included

@@ -628,16 +628,17 @@ def _frontend_step_impl(
 
     # --- Optional temporal two-point RANSAC on both cameras.
     if cfg.ransac_enabled:
-        R1_p_c = so3_exp((mean_gyro @ params.R_imu_cam1.T) * dt[:, None]).transpose(-1, -2)
-        in0 = _ransac.two_point_ransac(
-            state.pts0, tracked_pts0, matched, R_p_c, params.K0, params.D0,
-            *_ransac.ransac_draws(state.next_fid, 0), cfg.distortion_model0, cfg.ransac_threshold,
-        )
-        in1 = _ransac.two_point_ransac(
-            state.pts1, pts1, matched, R1_p_c, params.K1, params.D1,
-            *_ransac.ransac_draws(state.next_fid, 1), cfg.distortion_model1, cfg.ransac_threshold,
-        )
-        matched = matched & in0 & in1
+        with span("frontend.ransac"):
+            R1_p_c = so3_exp((mean_gyro @ params.R_imu_cam1.T) * dt[:, None]).transpose(-1, -2)
+            in0 = _ransac.two_point_ransac(
+                state.pts0, tracked_pts0, matched, R_p_c, params.K0, params.D0,
+                *_ransac.ransac_draws(state.next_fid, 0), cfg.distortion_model0, cfg.ransac_threshold,
+            )
+            in1 = _ransac.two_point_ransac(
+                state.pts1, pts1, matched, R1_p_c, params.K1, params.D1,
+                *_ransac.ransac_draws(state.next_fid, 1), cfg.distortion_model1, cfg.ransac_threshold,
+            )
+            matched = matched & in0 & in1
 
     surv = matched & ~is_first[:, None]
     state = state._replace(

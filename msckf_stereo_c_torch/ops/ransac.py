@@ -11,18 +11,25 @@ The JAX package draws its index pairs with ``jax.random`` (threefry), which
 the port cannot reproduce, so ``two_point_ransac`` takes the two raw draw
 vectors.  The front end makes them with ``ransac_draws``: a counter hash of
 (17, the lane's ``next_fid``, camera, hypothesis) on the device.
+
+While a profiler records, each call appends to ``ransac_work_log`` the
+matches it rejected in each lane (``valid & ~mask`` summed on the device,
+an int32 (B,) tensor; no host read); off the profiler it appends nothing.
 """
 from __future__ import annotations
 
+from collections import deque
 from typing import Tuple
 
 import torch
 
+from ..utils.timing import profiling
 from .camera import undistort_points
 from .linalg import solve2x2
 
 NUM_HYPOTHESES = 16  # >= ceil(log(1-0.99)/log(1-0.49)) = 7; extra is free
 _MASK32 = 0xFFFFFFFF
+ransac_work_log: deque = deque(maxlen=256)  # per call while profiling: rejected matches a lane, int32 (B,)
 
 
 def _hash32(x: torch.Tensor) -> torch.Tensor:
@@ -138,4 +145,7 @@ def two_point_ransac(
     degen_mask = raw & (dist_pt <= inlier_error * npu[:, None])
     out = torch.where((mean_dist < npu)[:, None], degen_mask, ransac_mask)
     # Too few raw inliers: everything out.
-    return out & (raw_cnt >= 3)[:, None]
+    out = out & (raw_cnt >= 3)[:, None]
+    if profiling():
+        ransac_work_log.append(torch.sum(valid & ~out, dim=-1, dtype=torch.int32))
+    return out

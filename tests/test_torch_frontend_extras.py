@@ -41,7 +41,7 @@ LAUNCH_CONFIGS = {
     "bench": dict(),
     "fast_motion_tl2": dict(temporal_levels=2),
     "fast_motion_tl4": dict(temporal_levels=4),
-    "reference_tracker": chip_smoke.REFERENCE_TRACKER,
+    "reference_tracker": chip_smoke.reference_tracker(),
     **{f"path_{i}": kw for i, kw in enumerate(chip_smoke.BENCH_PATHS.values())},
     "anchor_gain": dict(klt_norm="anchor_gain"),
     "mixed": dict(klt_norm="mixed"),
