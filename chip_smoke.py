@@ -33,7 +33,9 @@ if it fails:
    (``lm_rows``, by tests/_lm_cases.py:lm_hold); ``undistort_points`` on
    B x 144 EuRoC pixels for B = 1, 5, 512 in float32 against its plain
    version, bit-equal without R and within UNDISTORT_ULPS with it
-   (``undistort_rows``);
+   (``undistort_rows``); ``pyramids_for`` (``pyramid_level``) on B = 1
+   and 512 bench frames, presmoothed and raw, bit-equal to the plain chain
+   at 0, 1 and 3 bf16 passes (``pyramid_rows``);
 5. kernels on a stack: the four kernels of the main path on a B=4 image stack
    with a per-window image index, against their plain versions and against
    one launch per lane (bit-equal);
@@ -41,8 +43,9 @@ if it fails:
    the configuration ``bench.py`` runs, B=1) with the kernel launch counts
    zeroed just before and read just after (7 ``lk_corr_align``, 4
    ``extract_template``, 1 ``resample_template``, 1 ``fast_grid_corners``,
-   7 ``undistort_points`` and none of the others per frame: "7 / 4 / 1 / 1"
-   below, with the undistortions of ``launches_per_frame``; here and in
+   7 ``undistort_points``, 6 ``pyramid_level`` and none of the others per
+   frame: "7 / 4 / 1 / 1" below, with the undistortions and pyramids of
+   ``launches_per_frame``; here and in
    every later phase also the filter's ``lm_triangulate``, once a
    lost-track update and once a camera prune: T to 2T over T frames,
    ``launches_match``); frames/s, ATE, tracks, host syncs;
@@ -106,8 +109,8 @@ if it fails:
    (721 stereo frames rendered on the card with every stress channel on,
    ``klt_norm='gain'``), launch counts zeroed just before and read just
    after (7 ``lk_corr_align_gain``, 4 ``extract_template``, 1
-   ``resample_template``, 1 ``fast_grid_corners``, 7 ``undistort_points``
-   and none of the others per frame), the gate's ATE
+   ``resample_template``, 1 ``fast_grid_corners``, 7 ``undistort_points``,
+   6 ``pyramid_level`` and none of the others per frame), the gate's ATE
    and track bars, frames/s and render time;
 15. stress lanes: robustness seeds STRESS_LANE_SEEDS as the lanes of one
    ``sim/stress.py:run_stress_lanes`` run over STRESS_LANE_SECONDS of the
@@ -299,6 +302,12 @@ KERNEL_SOURCES = {
         "msckf_stereo_c_torch/csrc/undistort_points.cu",
         "msckf_stereo_c_tpu/ops/camera.py:undistort_points",
     ),
+    # No Pallas kernel: pyr_down's and smooth5's two dense banded GEMMs,
+    # which the TPU's matrix unit ran.
+    "pyramid_level": (
+        "msckf_stereo_c_torch/csrc/pyramid_level.cu",
+        "msckf_stereo_c_tpu/ops/pyramid.py:pyr_down",
+    ),
 }
 
 
@@ -478,7 +487,7 @@ def phase_kernels(img0, img1, fcfg):
     rows += resample_rows(pyr_a[0], pyr_b[0], corners, fcfg)
     rows += lk_rows("K1", pyr_a[0], pyr_b[0], fcfg, "none")
     rows += align_rows(pyr_a, pyr_b, corners, fcfg, "none")
-    return rows + fast_rows(img0, fcfg) + qr_rows() + lm_rows() + undistort_rows()
+    return rows + fast_rows(img0, fcfg) + pyramid_rows(img0, fcfg) + qr_rows() + lm_rows() + undistort_rows()
 
 
 FAST_BATCHES = (1, 512)  # the live cell's lanes and the eval cell's
@@ -560,6 +569,101 @@ def fast_rows(img0, fcfg):
               f"{n_near} near ties, score within {rel:.3g} relative, picks equal; per call {ms:.4f} ms (device "
               f"{_fmt(dev_ms)}), plain {plain_ms:.4f} ms (device {_fmt(chain_ms)}), bound {b:.5f} ms ({by}); "
               f"peak {kernel_mem / 2**30:.4f} GiB against the plain version's {plain_mem / 2**30:.4f} GiB")
+        del imgs
+    return rows
+
+
+PYRAMID_BATCHES = (1, 512)  # the live cell's lanes and the eval cell's
+# Least work of a blurred output pixel: 8 operations a 5-tap pass, two passes.
+PYRAMID_OPS_PER_PIXEL = 16
+
+
+def plain_pyramid(img, fcfg, passes: int = 0):
+    """The tracker pyramid of ``img`` as the plain chain builds it
+    (``pyramid_level_reference``; the CPU path of ``pyramids_for``): the
+    raw pyrDown chain, its level 0 replaced by the presmoothed image under
+    ``fcfg.presmooth``; every pass's operand rounded as ``passes`` bf16
+    passes see it."""
+    from msckf_stereo_c_torch.ops.pyramid import pyramid_level_reference
+
+    pyr = [img]
+    for _ in range(fcfg.pyramid_levels - 1):
+        pyr.append(pyramid_level_reference(pyr[-1], False, True, passes)[1])
+    if fcfg.presmooth:
+        pyr[0] = pyramid_level_reference(img, True, False, passes)[0]
+    return pyr
+
+
+def pyramid_rows(img0, fcfg):
+    """``pyramids_for`` on the card (``pyramid_level``) against the plain
+    chain (``plain_pyramid``) on B 480x752 bench frames (frame b mod T at
+    lane b), presmoothed (the bench and eval configuration) and raw (the qr
+    and msckfvio cells'): every level bit-equal, also at one and three bf16
+    passes, and ``max(pyramid_levels - 1, presmooth)`` launches a call.
+    Per-call and device time of a call; the bound, level 0 read once, each
+    blurred level written once and each decimated level but the last read
+    once, against PYRAMID_OPS_PER_PIXEL a blurred pixel; the plain chain's
+    per-call and device time and its device events, which is the chain
+    the kernel replaces."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from msckf_stereo_c_torch.config import matmul_precision_scope
+    from msckf_stereo_c_torch.models.frontend import pyramids_for
+    from msckf_stereo_c_torch.ops import _cuda
+
+    dev = torch.device("cuda")
+    frames = torch.as_tensor(img0, dtype=torch.float32, device=dev)
+    rows = []
+    for B in PYRAMID_BATCHES:
+        imgs = frames[torch.arange(B, device=dev) % frames.shape[0]].contiguous()
+        for presmooth in (True, False):
+            cfg = dataclasses.replace(fcfg, presmooth=presmooth)
+            want_launches = max(cfg.pyramid_levels - 1, int(presmooth))
+            for name, passes in (("float32", 0), ("bfloat16", 1), ("bfloat16_3x", 3)):
+                with matmul_precision_scope(name):
+                    before = _cuda.launch_counts["pyramid_level"]
+                    got = pyramids_for(imgs, cfg)
+                    check(_cuda.launch_counts["pyramid_level"] == before + want_launches,
+                          f"pyramid_level: not {want_launches} launches a pyramid")
+                want = plain_pyramid(imgs, cfg, passes)
+                torch.cuda.synchronize()
+                for lvl, (g, w) in enumerate(zip(got, want)):
+                    check(g.shape == w.shape and torch.equal(g, w),
+                          f"pyramid_level B={B} presmooth={presmooth} {name}: level {lvl} differs from the plain chain")
+                del got, want
+
+            def kernel():
+                return pyramids_for(imgs, cfg)
+
+            def plain():
+                return plain_pyramid(imgs, cfg)
+
+            reps, plain_reps = (50, 10) if B == 1 else (10, 3)
+            ms = cuda_ms(kernel, reps=reps)
+            dev_ms = device_ms_per_call(kernel, reps=reps)
+            plain_ms = cuda_ms(plain, reps=plain_reps, warmup=1)
+            plain_dev = device_ms_per_call(plain, reps=plain_reps)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                plain()
+                torch.cuda.synchronize()
+            plain_events = sum(1 for e in prof.profiler.kineto_results.events()
+                               if e.device_type() == DeviceType.CUDA)
+            n = [lvl.numel() for lvl in kernel()]
+            blurred = sum(n[1:]) + n[0] * int(presmooth)
+            b, by = bound_ms(4 * (n[0] + blurred + sum(n[1:-1])), blurred * PYRAMID_OPS_PER_PIXEL)
+            torch.cuda.empty_cache()
+            rows.append(dict(name="pyramid_level", B=B, presmooth=presmooth, levels=cfg.pyramid_levels,
+                             launches=want_launches, max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                             plain_device_ms=plain_dev, plain_device_events=plain_events, library_ms=None,
+                             bound_ms=b, bound_by=by))
+            print(f"[pyramid] B={B} presmooth={presmooth}: {cfg.pyramid_levels} levels bit-equal to the plain chain "
+                  f"at 0, 1 and 3 bf16 passes, {want_launches} launches; per call {ms:.4f} ms (device "
+                  f"{_fmt(dev_ms)}), plain {plain_ms:.4f} ms (device {_fmt(plain_dev)}, {plain_events} device "
+                  f"events), bound {b:.5f} ms ({by})")
         del imgs
     return rows
 
@@ -1964,10 +2068,14 @@ def launches_per_frame(fcfg, img_shape=(480, 752)) -> dict:
     - ``undistort_points``: 6 (the candidates' guess, the epipolar gate's
       two, the cheirality gate, the publish's two), one more for the
       translation-aware temporal prediction (``translation_seed``), and two
-      a camera under RANSAC (``ransac_enabled``).
+      a camera under RANSAC (``ransac_enabled``);
+    - ``pyramid_level``: one a blurred level of each camera's pyramid,
+      ``pyramid_levels - 1``, at least one when presmoothed (level 0 and 1
+      come from one launch).
     """
     counts = dict.fromkeys(KERNEL_SOURCES, 0)
     counts["fast_grid_corners"] = 1
+    counts["pyramid_level"] = 2 * max(fcfg.pyramid_levels - 1, int(fcfg.presmooth))
     counts["undistort_points"] = 6 + int(fcfg.translation_seed) + 4 * int(fcfg.ransac_enabled)
     if fcfg.klt_impl != "corr":
         return counts
@@ -2863,6 +2971,7 @@ def main(argv=None) -> int:
         "lm_triangulate": next(r for r in rows if r["name"] == "lm_triangulate" and r["dtype"] == "float32"
                                and r["B"] == 512),
         "undistort_points": next(r for r in rows if r["name"] == "undistort_points" and r["B"] == 512),
+        "pyramid_level": next(r for r in rows if r["name"] == "pyramid_level" and r["B"] == 512 and r["presmooth"]),
     }
     # Launch counts come from the bench path, lk_corr_align_gain's from the
     # stress path (the bench path runs klt_norm='none', which never launches

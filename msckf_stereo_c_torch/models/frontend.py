@@ -40,7 +40,7 @@ from ..ops.klt_corr import (
     optical_flow_pyr_lk_corr,
     stereo_anchor_lr_fused,
 )
-from ..ops.pyramid import build_pyramid, smooth5
+from ..ops.pyramid import tracker_pyramid
 from ..utils.lanes import add_lane_axis, count_into, drop_lane_axis, lane_index, scatter_drop, take
 from ..utils.lie import so3_exp
 from ..utils.timing import span
@@ -681,11 +681,10 @@ def _frontend_step_impl(
 def pyramids_for(img: torch.Tensor, cfg: FrontendConfig) -> Tuple[torch.Tensor, ...]:
     """Image pyramid for the tracker, of an (H, W) image or each image of a
     (B, H, W) stack; with cfg.presmooth the full-resolution level is the
-    5-tap prefiltered image, coarse levels the raw pyrDown chain."""
-    pyr = build_pyramid(img, cfg.pyramid_levels)
-    if cfg.presmooth:
-        pyr = [smooth5(img)] + pyr[1:]
-    return tuple(pyr)
+    5-tap prefiltered image, coarse levels the raw pyrDown chain.  On the
+    card ``cfg.pyramid_levels - 1`` launches of ``pyramid_level`` (one where
+    a presmoothed pyramid has one level)."""
+    return tuple(tracker_pyramid(img, cfg.pyramid_levels, cfg.presmooth))
 
 
 def feature_lifetime_statistics(state: TrackerState) -> dict:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import FilterConfig, FrontendConfig, StereoCalib, matmul_precision_scope, resolve_device
+from ..ops.pyramid import blank_pyramid
 from ..utils.lanes import add_lane_axis, drop_lane_axis, map_tree
 from ..utils.quaternion import jpl_to_rot
 from ..utils.timing import span
@@ -59,11 +60,11 @@ def init_vio_state(
     raises when CUDA is missing and no device was given)."""
     device = resolve_device(device)
     H, W = img_shape
-    dummy = torch.zeros((H, W), dtype=image_dtype, device=device)
     return VioState(
         tracker=init_tracker_state(fcfg, image_dtype, device),
         filt=init_filter_state(mcfg, calib, filter_dtype, device),
-        pyr0_prev=pyramids_for(dummy, fcfg),
+        # pyramids_for of an all-zero image, made without a blur.
+        pyr0_prev=tuple(blank_pyramid((H, W), fcfg.pyramid_levels, image_dtype, device)),
         prev_time=torch.full((), -1.0, dtype=filter_dtype, device=device),
     )
 

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "qr_compress": (_P, _P, _P, _I, _I, _I, _I, _P),
     "lm_triangulate": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P),
     "undistort_points": (_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P),
+    "pyramid_level": (_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,6 @@
 """``chip_smoke.py:launches_per_frame`` against the kernel-wrapper calls one
-``frontend_step`` makes on the CPU under each configuration the card checks
+``frontend_step`` and its two ``pyramids_for`` make on the CPU under each
+configuration the card checks
 (every call with features counts as the launch it makes on the card);
 ``feature_lifetime_statistics`` against the JAX package's on a stepped
 tracker state (equal dicts); and the EuRoC app with a YAML that sets the
@@ -25,6 +26,7 @@ from msckf_stereo_c_torch.models import frontend as tfe
 from msckf_stereo_c_torch.models.vio import run_vio_sequence
 from msckf_stereo_c_torch.ops import camera as tcam
 from msckf_stereo_c_torch.ops import klt_corr as tkc
+from msckf_stereo_c_torch.ops import pyramid as tpyr
 from msckf_stereo_c_torch.ops import ransac as transac
 from msckf_stereo_c_torch.sim.euroc_dataset import to_uint8, write_euroc
 from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
@@ -48,6 +50,7 @@ LAUNCH_CONFIGS = {
     "three_levels": dict(pyramid_levels=3),
     "stereo_levels_2": dict(stereo_levels=2),
     "no_level1": dict(cand_level1=False),
+    "raw_pixels": dict(presmooth=False, fast_threshold=10),
 }
 KERNELS = ("lk_corr_align", "lk_corr_align_gain", "extract_template", "resample_template")
 
@@ -81,6 +84,12 @@ def test_launches_per_frame_counts_the_wrapper_calls(scene, monkeypatch, name):
 
     monkeypatch.setattr(tfe, "undistort_points", undistort_counted)
     monkeypatch.setattr(transac, "undistort_points", undistort_counted)
+
+    def pyramid_counted(img, *args, _fn=tpyr.pyramid_level, **kwargs):
+        calls["pyramid_level"] += int(img.numel() > 0)
+        return _fn(img, *args, **kwargs)
+
+    monkeypatch.setattr(tpyr, "pyramid_level", pyramid_counted)
     cfg = tconfig.FrontendConfig(max_features=48, **LAUNCH_CONFIGS[name])
     p0, p1 = tfe.pyramids_for(torch.as_tensor(img0[0]), cfg), tfe.pyramids_for(torch.as_tensor(img1[0]), cfg)
     g, dt, first, v = (torch.as_tensor(np.asarray(x)) for x in frame_inputs(traj, imu, IDX, 0))

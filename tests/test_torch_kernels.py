@@ -1,4 +1,4 @@
-"""The port's eleven hand-written CUDA kernels, their wrappers and their
+"""The port's twelve hand-written CUDA kernels, their wrappers and their
 plain versions.
 
 The tests marked ``cuda`` hold each kernel against its plain version on the
@@ -954,3 +954,108 @@ def test_undistort_points_kernel_rejects_bad_input(cuda_device):
         tcam.undistort_points(pts[:, :1], K, D)
     with pytest.raises(ValueError):
         tcam.undistort_points(pts, K, D, R=R[:2])
+
+
+PYRAMID_PASSES = {0: "float32", 1: "bfloat16", 3: "bfloat16_3x"}
+
+
+def _pyramid_images(B, shape, dtype=torch.float32, device=None, seed=0):
+    """B images (B, H, W) of grey levels 0-255 off the bf16 grid (noise on
+    a blocky field), as the renderer's frames are."""
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    field = np.kron(rng.uniform(0, 255, (B, H // 4 + 1, W // 4 + 1)), np.ones((1, 4, 4)))[:, :H, :W]
+    img = np.clip(field + rng.normal(0, 3, (B, H, W)), 0, 255)
+    return torch.as_tensor(img, dtype=dtype, device=device)
+
+
+def _hold_pyramid(imgs, cfg, passes):
+    """``pyramids_for`` on the card against the plain chain at ``passes``:
+    every level bit-equal, ``max(levels - 1, presmooth)`` launches, and no
+    host read (torch's sync debug mode raises on one)."""
+    from msckf_stereo_c_torch.models.frontend import pyramids_for
+
+    before = _cuda.launch_counts["pyramid_level"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with matmul_precision_scope(PYRAMID_PASSES[passes]):
+            got = pyramids_for(imgs, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _cuda.launch_counts["pyramid_level"] == before + max(cfg.pyramid_levels - 1, int(cfg.presmooth))
+    want = chip_smoke.plain_pyramid(imgs, cfg, passes)
+    assert len(got) == len(want) == cfg.pyramid_levels
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and g.is_contiguous()
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5, 64])
+@pytest.mark.parametrize("shape", [(480, 752), (479, 751), (61, 95)])
+@pytest.mark.parametrize("passes", [0, 1, 3])
+@pytest.mark.parametrize("presmooth", [True, False])
+def test_pyramid_level_kernel_matches_plain(cuda_device, presmooth, passes, shape, B):
+    """The tracker pyramid of ``pyramid_level`` launches bit-equal to the
+    plain chain on the card, presmoothed (3 launches for 4 levels: level 0
+    and 1 from one) and raw, at every bf16 pass count, on even and odd
+    sizes down to a level 3 of 8 x 12."""
+    from msckf_stereo_c_torch.config import FrontendConfig
+
+    _hold_pyramid(_pyramid_images(B, shape, device=cuda_device, seed=B), FrontendConfig(presmooth=presmooth), passes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("presmooth", [True, False])
+def test_pyramid_level_kernel_float64_and_other_depths(cuda_device, presmooth):
+    """Float64 images (the passes leave them as they are) and pyramids of
+    1, 2 and 5 levels, bit-equal to the plain chain."""
+    from msckf_stereo_c_torch.config import FrontendConfig
+
+    imgs = _pyramid_images(3, (121, 187), torch.float64, cuda_device, seed=9)
+    for passes in (0, 3):
+        _hold_pyramid(imgs, FrontendConfig(presmooth=presmooth), passes)
+    for levels in (1, 2, 5):
+        _hold_pyramid(imgs.float(), FrontendConfig(presmooth=presmooth, pyramid_levels=levels), 0)
+
+
+@pytest.mark.cuda
+def test_pyramid_level_kernel_shapes_and_stacks(cuda_device):
+    """One (H, W) image, a stack past the grid's 65,535 images, an empty
+    stack (no launch) and the three entry points alone, each one launch,
+    against the plain chain."""
+    from msckf_stereo_c_torch.ops import pyramid as tpyr
+
+    one = _pyramid_images(1, (480, 752), device=cuda_device, seed=3)[0]
+    many = _pyramid_images(65_600, (5, 7), device=cuda_device, seed=4)
+    for img in (one, many):
+        for full, half in ((True, True), (True, False), (False, True)):
+            before = _cuda.launch_counts["pyramid_level"]
+            got = tpyr.pyramid_level(img, full, half)
+            assert _cuda.launch_counts["pyramid_level"] == before + 1
+            want = tpyr.pyramid_level_reference(img, full, half)
+            for g, w in zip(got, want):
+                assert (g is None and w is None) or torch.equal(g, w)
+        assert torch.equal(tpyr.pyr_down(img), tpyr.pyramid_level_reference(img, False, True)[1])
+        assert torch.equal(tpyr.smooth5(img), tpyr.pyramid_level_reference(img, True, False)[0])
+    before = _cuda.launch_counts["pyramid_level"]
+    full, half = tpyr.pyramid_level(torch.zeros((0, 60, 94), device=cuda_device))
+    assert full.shape == (0, 60, 94) and half.shape == (0, 30, 47)
+    assert _cuda.launch_counts["pyramid_level"] == before
+
+
+@pytest.mark.cuda
+def test_pyramid_level_kernel_rejects_bad_input(cuda_device):
+    from msckf_stereo_c_torch.ops import pyramid as tpyr
+
+    with pytest.raises(TypeError):
+        tpyr.pyr_down(torch.zeros((60, 94), dtype=torch.float16, device=cuda_device))
+    with pytest.raises(TypeError):
+        tpyr.smooth5(torch.zeros((60, 94), dtype=torch.uint8, device=cuda_device))
+    with pytest.raises(ValueError):
+        tpyr.pyr_down(torch.zeros((4, 2, 94), device=cuda_device))
+    with pytest.raises(ValueError):
+        tpyr.pyr_down(torch.zeros((94,), device=cuda_device))
+    with pytest.raises(ValueError):
+        tpyr.pyramid_level(torch.zeros((60, 94), device=cuda_device), full=False, half=False)

@@ -14,6 +14,7 @@ import torch
 from msckf_stereo_c_torch.ops import camera as tcam
 from msckf_stereo_c_torch.ops import fast as tfast
 from msckf_stereo_c_torch.ops import linalg as tlin
+from msckf_stereo_c_torch.ops import precision
 from msckf_stereo_c_torch.ops import pyramid as tpyr
 from msckf_stereo_c_torch.utils import chi2 as tchi2
 from msckf_stereo_c_torch.utils import lie as tlie
@@ -170,6 +171,41 @@ def test_pyramid_and_smooth(shape):
         tpyr.smooth5(torch.as_tensor(img)).numpy(), np.asarray(jpyr.smooth5(jnp.asarray(img))),
         rtol=0, atol=1e-3,
     )
+
+
+@pytest.mark.parametrize("shape", [(61, 95), (120, 188), (479, 751)])
+@pytest.mark.parametrize("passes", [0, 1, 3])
+def test_pyr_down_is_smooth5_at_even_rows_and_columns(passes, shape):
+    """In the plain chain ``pyr_down(img)`` equals ``smooth5(img)[..., ::2,
+    ::2]`` bit for bit under every pass count: the identity that lets one
+    ``pyramid_level`` launch give the presmoothed level 0 and level 1."""
+    base = _image(5, *shape) + np.float32(0.37)  # not representable in bf16
+    img = torch.as_tensor(np.stack([base, base * np.float32(0.3)]))
+    with precision.products(passes):
+        down, smooth = tpyr.pyr_down(img), tpyr.smooth5(img)
+        both = tpyr.pyramid_level(img, full=True, half=True)
+    assert down.shape == (2, (shape[0] + 1) // 2, (shape[1] + 1) // 2)
+    assert torch.equal(down, smooth[..., ::2, ::2])
+    assert torch.equal(both[0], smooth) and torch.equal(both[1], down)
+
+
+@pytest.mark.parametrize("levels", [1, 3, 4])
+@pytest.mark.parametrize("presmooth", [True, False])
+def test_tracker_pyramid_and_blank_pyramid(presmooth, levels):
+    """``tracker_pyramid`` is ``build_pyramid`` with level 0 replaced by
+    ``smooth5`` under ``presmooth``; ``blank_pyramid`` is the tracker
+    pyramid of a zero image, level for level."""
+    img = torch.as_tensor(_image(6, 61, 95))
+    got = tpyr.tracker_pyramid(img, levels, presmooth)
+    want = tpyr.build_pyramid(img, levels)
+    if presmooth:
+        want[0] = tpyr.smooth5(img)
+    assert len(got) == len(want) == max(levels, 1)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    zero = tpyr.tracker_pyramid(torch.zeros(61, 95), levels, presmooth)
+    blank = tpyr.blank_pyramid((61, 95), levels, torch.float32)
+    assert [tuple(z.shape) for z in zero] == [tuple(b.shape) for b in blank]
+    assert all(torch.equal(z, b) for z, b in zip(zero, blank))
 
 
 def test_fast():
